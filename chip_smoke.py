@@ -1,0 +1,404 @@
+#!/usr/bin/env python3
+"""Smoke test of loopy_slam_torch on one CUDA card.
+
+    python3 chip_smoke.py [--frames N] [--profile]
+
+Phases:
+  1. the card's name and power limit, torch and CUDA versions;
+  2. builds the hand-written kernels from csrc/ and prints the build time;
+  3. holds each kernel against its plain PyTorch version on the card, at
+     the main path's shapes, on a map made by the port's own insertion on
+     synthetic-room frames, and times both (CUDA events, median of 20);
+  4. runs the slice: LoopySLAM on configs/Synthetic/room.yaml's values
+     (segment_strategy none, color_refine off, visualizer off) for 31
+     frames, with the kernels' launch counts reset just before, and gates
+     on launches > 0, ATE (aligned) <= 3 mm and no health-gate rejects;
+  5. (only with --profile) a torch.profiler trace of a
+     6-frame session: device kernel time by kernel, and the device's busy
+     share of the wall time (the profiler's own host cost included). The
+     profiler's post-processing of ~1.8M kernel events takes about a
+     quarter of an hour on the card's host; give the call time for it.
+
+Prints a JSON line of per-kernel numbers, then the card's name and power
+limit, then {"ok": true, "device": {...}} as the last line. Exits non-zero
+(and prints no result) without a CUDA device or if any phase fails.
+Imports nothing of JAX; needs no yaml (the config is built from DEFAULTS).
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# configs/point_slam.yaml + configs/Synthetic/room.yaml, as a dict (the card's
+# machine has no PyYAML); a CPU test holds it equal to the loaded YAML
+ROOM = {
+    "verbose": True, "wandb": False, "setup_seed": 1219,
+    "dataset": "synthetic", "project_name": "loopy_slam_tpu_synthetic",
+    "use_view_direction": False, "use_dynamic_radius": False,
+    "data": {"n_frames": 60, "input_folder": "",
+             "output": "output/Synthetic/room"},
+    "tracking": {"filter": False, "ignore_edge_W": 20, "ignore_edge_H": 20,
+                 "separate_LR": True, "lr": 0.002, "pixels": 1500,
+                 "iters": 40},
+    "mapping": {"every_frame": 5, "keyframe_every": 5,
+                "mapping_window_size": 12, "pixels": 5000,
+                "pixels_adding": 6000, "pixels_based_on_color_grad": 0,
+                "iters_first": 800, "iters": 300, "color_refine": True},
+    "rendering": {"sample_near_pcl": False},
+    "cam": {"H": 340, "W": 600, "fx": 300.0, "fy": 300.0, "cx": 299.5,
+            "cy": 169.5, "png_depth_scale": 6553.5, "crop_edge": 0},
+    "pointcloud": {"capacity": 262144, "cell_table_size": 131072},
+    "pretrained_decoders": {"middle_fine": "pretrained/geo_decoder.pkl"},
+}
+# the slice: one global map, no color refinement, no visualizer
+SLICE_OVERRIDES = {
+    "mapping": {"segment_strategy": "none", "color_refine": False,
+                "vis_freq": 0},
+    "tracking": {"vis_freq": 0},
+}
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 (non-tensor)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+ATE_GATE_M = 0.003
+
+
+def room_config(n_frames: int, output: str):
+    from loopy_slam_torch.config import DEFAULTS, update_recursive
+
+    cfg = copy.deepcopy(DEFAULTS)
+    update_recursive(cfg, copy.deepcopy(ROOM))
+    update_recursive(cfg, copy.deepcopy(SLICE_OVERRIDES))
+    cfg["data"]["n_frames"] = int(n_frames)
+    cfg["data"]["output"] = output
+    return cfg
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_cuda(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of fn() over `runs` launches (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def build_kernel_map(cfg, device, frames=(0, 5, 10, 15, 20, 25, 30)):
+    """A map made by the port's own insertion on synthetic-room frames
+    (ground-truth poses, the main path's 6000-ray insertion batches)."""
+    import torch
+
+    from loopy_slam_torch.mapping import mapper
+    from loopy_slam_torch.mapping.point_cloud import MapOptions, init_map
+    from loopy_slam_torch.ops.draws import TorchDraws
+    from loopy_slam_torch.slam import _upload_frame
+    from loopy_slam_torch.utils.datasets import Synthetic
+
+    ds = Synthetic(cfg)
+    mopts = MapOptions.from_cfg(cfg)
+    popts = mapper.MapperOptions.from_cfg(cfg)
+    draw = TorchDraws(7, device)
+    state = init_map(mopts, device=device)
+    prev = None
+    views = {}
+    for i in frames:
+        _, c_np, d_np, pose = ds[i]
+        color, depth = _upload_frame(c_np, d_np, device)
+        cur = torch.as_tensor(pose, device=device)
+        state, _ = mapper.add_points_from_frame(
+            state, color, depth, cur, cur if prev is None else prev, draw,
+            mopts, popts, cfg["mapping"]["pixels_adding"], overlap=None)
+        prev = cur
+        views[i] = (color, depth, cur)
+    return state, views, draw, mopts
+
+
+def pool_queries(views, frames, per_frame, cfg, draw):
+    """Sample positions shaped like the main path's k-NN pools: per_frame
+    pixels of each frame, N_surface depth-guided samples per ray."""
+    import torch
+
+    from loopy_slam_torch.ops.camera import rays_from_uv
+    from loopy_slam_torch.ops.sampling import (inside_mask_from_depth,
+                                               sample_pixels, surface_z_vals)
+
+    r = cfg["rendering"]
+    out = []
+    for f in frames:
+        color, depth, c2w = views[f]
+        H, W = depth.shape
+        i, j, d, _ = sample_pixels(draw, 0, H, 0, W, per_frame, depth, color)
+        inside = inside_mask_from_depth(d, d > 0)
+        z = surface_z_vals(d, inside, r["N_surface"], r["near_end_surface"],
+                           r["far_end_surface"], r["near_end"])
+        cam = cfg["cam"]
+        ro, rd = rays_from_uv(i, j, c2w, cam["fx"], cam["fy"], cam["cx"],
+                              cam["cy"])
+        out.append((ro[:, None, :] + rd[:, None, :] * z[..., None])
+                   .reshape(-1, 3))
+    return torch.cat(out).contiguous()
+
+
+def knn_bound(grid, queries, k):
+    """Least time for the k-NN function on these inputs, the larger of two.
+    Bytes over HBM bandwidth: the fill count and the filled slots of each
+    row the queries touch, read once (empty slots hold the 1e9 sentinel and
+    change no output), the queries and cell_size read, D/I/neighbor_num
+    written. f32 operations over the f32 peak: 8 per filled candidate in
+    each query's stencil (3 sub, 3 mul, 2 add)."""
+    import torch
+
+    from loopy_slam_torch.ops import knn
+
+    h = knn.stencil_rows(grid, queries)  # repeated probes -> empty row
+    fill = grid.cell_fill.long()
+    rows = torch.unique(h)
+    Q = queries.shape[0]
+    nbytes = (int(fill[rows].sum()) * 16 + rows.numel() * 4
+              + Q * 12 + 4 + Q * (k * 8 + 4))
+    ops = int(fill[h].sum()) * 8
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def kernel_phase(cfg, device):
+    """Kernel against plain version at the main path's shapes."""
+    import torch
+
+    from loopy_slam_torch.ops import knn
+
+    print("== phase 3: knn_select kernel vs plain PyTorch on the card",
+          flush=True)
+    state, views, draw, mopts = build_kernel_map(cfg, device)
+    n_pts = int(state.count)
+    print(f"map: {n_pts} points from the port's insertion, "
+          f"n_dropped {int(state.grid.n_dropped)}", flush=True)
+    valid = torch.arange(state.pos.shape[0], device=device) < state.count
+    grid_128 = knn.build_adaptive(state.pos, valid, mopts.cell_size,
+                                  mopts.table_size, max_per_cell=128)
+    k = cfg["pointcloud"]["nn_num"]
+    r = cfg["pointcloud"]["radius_query"]
+    frames = sorted(views)
+    shapes = [
+        ("track_pool Q=30000 M=32", state.grid,
+         pool_queries(views, frames[:1], 6000, cfg, draw)),
+        ("map_pool Q=199680 M=32", state.grid,
+         pool_queries(views, (frames * 2)[:12], 3328, cfg, draw)),
+        ("track_pool Q=30000 M=128", grid_128,
+         pool_queries(views, frames[-1:], 6000, cfg, draw)),
+    ]
+    results = []
+    for name, grid, q in shapes:
+        M = grid.cell_data.shape[1]
+        D, I, nn = knn._query_cuda(grid, q, k, r)
+        Dp, Ip, nnp = knn._query_plain(grid, q, k, r)
+        torch.cuda.synchronize()
+        same_I = bool(torch.equal(I, Ip))
+        same_nn = bool(torch.equal(nn, nnp))
+        same_D = bool(torch.equal(D.view(torch.int32), Dp.view(torch.int32)))
+        err = float((D - Dp).abs().max())
+        ms = time_cuda(lambda: knn._query_cuda(grid, q, k, r))
+        plain_ms = time_cuda(lambda: knn._query_plain(grid, q, k, r))
+        bound_ms, bound_by, nbytes, ops = knn_bound(grid, q, k)
+        res = {"shape": name, "Q": int(q.shape[0]), "M": int(M),
+               "id_bits": knn._id_bits(M), "D_bit_equal": same_D,
+               "I_equal": same_I, "nn_equal": same_nn,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bytes": nbytes, "ops": ops,
+               "mean_neighbors": float(nn.float().mean())}
+        print(json.dumps(res), flush=True)
+        if not (same_D and same_I and same_nn):
+            raise AssertionError(f"knn_select disagrees with the plain "
+                                 f"version at {name}")
+        results.append(res)
+    del state, views, grid_128
+    torch.cuda.empty_cache()
+    return results
+
+
+def slice_phase(n_frames, device):
+    """LoopySLAM on the synthetic room at full width."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch.ops import knn
+    from loopy_slam_torch.slam import LoopySLAM
+    from loopy_slam_torch.tools.eval_ate import evaluate_trajectories
+
+    print(f"== phase 4: slice run, synthetic room, {n_frames} frames",
+          flush=True)
+    out = os.path.join(HERE, "output", "chip_smoke")
+    cfg = room_config(n_frames, out)
+    t0 = time.perf_counter()
+    slam = LoopySLAM(cfg, output=out, device=device)
+    try:
+        knn.KNN_SELECT_LAUNCHES.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        result = slam.run()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = knn.KNN_SELECT_LAUNCHES.count
+    finally:
+        slam.close()
+    stats = evaluate_trajectories(result["estimate_c2w"], result["gt_c2w"])
+    rejects = int(slam.track_health[1].item())
+    med = {k: float(np.median(v)) for k, v in slam.timings.items() if v}
+    summary = {
+        "frames": n_frames,
+        "track_median_s": med.get("track"), "map_median_s": med.get("map"),
+        "data_median_s": med.get("data"),
+        "upload_median_s": med.get("upload"),
+        "track_times_s": slam.timings["track"],
+        "map_times_s": slam.timings["map"],
+        "setup_s": t_run - t0, "run_s": t_end - t_run,
+        "wall_s": t_end - t0, "n_points": result["n_points"],
+        "health_rejects": rejects, "ate_rmse_m": stats["rmse"],
+        "ate_rmse_noalign_m": stats["rmse_no_align"],
+        "knn_select_launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("slice:", json.dumps(summary), flush=True)
+    if not np.isfinite(result["estimate_c2w"]).all():
+        raise AssertionError("non-finite pose estimates")
+    if launches <= 0:
+        raise AssertionError("the slice never launched the knn_select kernel")
+    if stats["rmse"] > ATE_GATE_M:
+        raise AssertionError(f"ATE {stats['rmse']:.5f} m > {ATE_GATE_M} m")
+    if rejects:
+        raise AssertionError(f"{rejects} tracking health-gate rejects")
+    return summary
+
+
+def profile_phase(device, n_frames=6, top=15):
+    """Device time by kernel over a short session, and the busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from loopy_slam_torch.slam import LoopySLAM
+
+    print(f"== phase 5: torch.profiler over a {n_frames}-frame session",
+          flush=True)
+    out = os.path.join(HERE, "output", "chip_smoke_profile")
+    cfg = room_config(n_frames, out)
+    cfg["verbose"] = False
+    slam = LoopySLAM(cfg, output=out, device=device)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            slam.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        slam.close()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    n_launch = sum(e.count for e in kernels)
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    rows = [{"kernel": e.key[:90], "count": e.count,
+             "device_ms": e.self_device_time_total / 1e3,
+             "share": e.self_device_time_total / max(busy_us, 1)}
+            for e in kernels[:top]]
+    res = {"frames": n_frames, "wall_s": wall,
+           "device_busy_s": busy_us / 1e6,
+           "device_busy_share": busy_us / 1e6 / wall,
+           "kernel_launches": n_launch,
+           "timings_s": {k: sum(v) for k, v in slam.timings.items()},
+           "top_kernels": rows}
+    print("profile:", json.dumps(res), flush=True)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=31)
+    ap.add_argument("--profile", action="store_true",
+                    help="add a torch.profiler trace of a 6-frame session")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from loopy_slam_torch import resolve_device
+    from loopy_slam_torch.csrc import build
+
+    device = resolve_device()
+    smi = nvidia_smi_line()
+    print("== phase 1:", smi, "| torch", torch.__version__, "| cuda",
+          torch.version.cuda, "|", sys.version.split()[0], flush=True)
+
+    t0 = time.perf_counter()
+    build.load_library()
+    print(f"== phase 2: kernels built/loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if build.BUILD_LOG:
+        print(build.BUILD_LOG["log"].strip(), flush=True)
+
+    # the kernel check's map spans frames 0..30 whatever the slice's length
+    cfg = room_config(31, os.path.join(HERE, "output", "chip_smoke"))
+    shape_results = kernel_phase(cfg, device)
+    summary = slice_phase(args.frames, device)
+    if args.profile:
+        profile_phase(device)
+
+    main_shape = next(r for r in shape_results
+                      if r["shape"].startswith("map_pool"))
+    entry = {
+        "name": "knn_select", "route": "cuda",
+        "source": "loopy_slam_torch/csrc/knn_select.cu",
+        "replaces": "loopy_slam_tpu/ops/knn.py:231",
+        "launches": summary["knn_select_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in shape_results),
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+        "shapes": shape_results,
+    }
+    print(json.dumps({"kernels": [entry]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
 """Smoke test of loopy_slam_torch on one CUDA card.
 
-    python3 chip_smoke.py [--frames N] [--profile]
+    python3 chip_smoke.py [--frames N] [--profile] [--variants]
 
 Phases:
   1. the card's name and power limit, torch and CUDA versions;
-  2. builds the hand-written kernels from csrc/ and prints the build time;
+  2. builds the hand-written kernels from csrc/ (with --variants, also
+     the VARIANTS copies of knn_select.cu, all nvcc processes at once), and
+     prints the build time;
   3. holds each kernel against its plain PyTorch version on the card, at
      the main path's shapes, on a map made by the port's own insertion on
-     synthetic-room frames, and times both (CUDA events, median of 20);
+     synthetic-room frames, and times it with CUDA events: `ms`, the
+     kernel's own device time (bare launches after an L2 flush, median of
+     20), `ms_warm` (back-to-back launches over their count), and
+     `call_ms` (the wrapper's whole call, as the main path pays it, median
+     of 20), beside the plain version's `plain_ms` and the bound; with
+     --variants, also `variants`: the cold ms of each variant build;
   4. runs the slice: LoopySLAM on configs/Synthetic/room.yaml's values
      (segment_strategy none, color_refine off, visualizer off) for 31
      frames, with the kernels' launch counts reset just before, and gates
@@ -92,7 +99,8 @@ def nvidia_smi_line() -> str:
 
 
 def time_cuda(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() over `runs` launches (CUDA events)."""
+    """Median milliseconds of fn() over `runs` calls (CUDA events around
+    each call, host work inside the window included)."""
     import torch
 
     for _ in range(warmup):
@@ -109,6 +117,157 @@ def time_cuda(fn, runs: int = 20, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+# L2 flush before each cold launch: 128 MB > the H100's 50 MB L2, and its
+# ~40 us of writes keep the device busy while the host enqueues the launch
+FLUSH_BYTES = 128 << 20
+# device-side stall before a timed run (~25 ms at the H100's clock), so the
+# host's enqueueing runs ahead of the device and no host gap is timed
+SLEEP_CYCLES = 50_000_000
+
+
+def time_device(launch, runs: int = 20, warm_runs: int = 50):
+    """The kernel's own device time, from events recorded on the stream
+    right around each bare launch (no wrapper work inside the window).
+    Returns (cold, warm) milliseconds: cold is the median over `runs`
+    launches, each after a write of FLUSH_BYTES that evicts L2 as the
+    optimizer iterations between two pool builds do; warm is one window
+    around `warm_runs` back-to-back launches, over the count."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for a, b in ev:
+        flush.zero_()
+        a.record()
+        launch()
+        b.record()
+    torch.cuda.synchronize()
+    cold = sorted(a.elapsed_time(b) for a, b in ev)[runs // 2]
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(warm_runs):
+        launch()
+    b.record()
+    torch.cuda.synchronize()
+    del flush
+    return cold, a.elapsed_time(b) / warm_runs
+
+
+# Copies of knn_select.cu with one design choice changed or one stage cut
+# out (--variants), timed beside the kernel to show what its time is made
+# of: name -> (source edits, whether the outputs stay bit-equal). Each edit
+# must match the source exactly once, so a changed kernel fails loudly here.
+_SCAN = "for (int c = lane; c < total; c += G)"
+_MERGE = "for (int rank = 0; rank < K; ++rank)"
+VARIANTS = {
+    "group_16": ([("constexpr int kGroup = 8;",
+                   "constexpr int kGroup = 16;")], True),
+    "group_32": ([("constexpr int kGroup = 8;",
+                   "constexpr int kGroup = 32;")], True),
+    # __match_any_sync on every query instead of only after the exact test
+    "match_every_query": ([("__any_sync(kFull, repeat)",
+                            "__any_sync(kFull, true)")], True),
+    # the merge's min over the group by __reduce_min_sync, not shuffles
+    "reduce_min_merge": ([(
+        "for (int o = G / 2; o > 0; o /= 2)\n"
+        "        least = min(least, __shfl_xor_sync(gmask, least, o, G));",
+        "for (int o = 0; o < 1; ++o)\n"
+        "        least = __reduce_min_sync(gmask, least);")], True),
+    # stages cut out (wrong outputs, never compared): the candidate scan;
+    # the scan and the merge; everything (a launch of the same grid)
+    "no_scan": ([(_SCAN, _SCAN.replace("c < total", "c < 0"))], False),
+    "no_scan_no_merge": ([(_SCAN, _SCAN.replace("c < total", "c < 0")),
+                          (_MERGE, _MERGE.replace("rank < K", "rank < 0"))],
+                         False),
+    "empty": ([("const bool live = q < Q;",
+                "const bool live = q < Q;\n  if (Q > 0) return;")], False),
+}
+
+
+def variant_source(src: str, name: str) -> str:
+    """knn_select.cu's text `src` with the edits of VARIANTS[name]."""
+    for old, new in VARIANTS[name][0]:
+        if src.count(old) != 1:
+            raise AssertionError(f"variant {name}: {old!r} does not occur "
+                                 f"once in knn_select.cu")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variants(out_dir):
+    """Build every VARIANTS copy of knn_select.cu with the kernels' nvcc
+    flags, in parallel; returns {name: library} with the kernel's C
+    signature declared."""
+    import ctypes
+
+    from loopy_slam_torch.csrc import build
+
+    with open(os.path.join(os.path.dirname(build.__file__),
+                           "knn_select.cu")) as f:
+        src = f.read()
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name in VARIANTS:
+        cu = os.path.join(out_dir, f"knn_select_{name}.cu")
+        with open(cu, "w") as f:
+            f.write(variant_source(src, name))
+        so = cu[:-3] + ".so"
+        procs[name] = (so, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fn = build.load_library().knn_select_launch
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        lib = ctypes.CDLL(so)
+        lib.knn_select_launch.argtypes = fn.argtypes
+        lib.knn_select_launch.restype = fn.restype
+        libs[name] = lib
+    return libs
+
+
+def bare_launch(grid, q, k, radius: float, lib=None):
+    """A no-argument function making the bare knn_select_launch call on
+    outputs allocated once here: the wrapper's checks, allocations and
+    library lookup stay outside the timed window. lib: a library other
+    than the kernels' (a variant build)."""
+    import ctypes
+
+    import torch
+
+    from loopy_slam_torch.csrc.build import load_library
+    from loopy_slam_torch.ops import knn
+
+    lib = lib or load_library()
+    cd = grid.cell_data
+    T, M = cd.shape[0] - 1, cd.shape[1]
+    Q = q.shape[0]
+    D = torch.empty((Q, k), dtype=torch.float32, device=q.device)
+    I = torch.empty((Q, k), dtype=torch.int32, device=q.device)
+    nn = torch.empty((Q,), dtype=torch.int32, device=q.device)
+    args = (cd.data_ptr(), grid.cell_fill.data_ptr(), q.data_ptr(), None,
+            ctypes.c_float(radius), grid.cell_size.data_ptr(), D.data_ptr(),
+            I.data_ptr(), nn.data_ptr(), Q, T, M, knn._id_bits(M), k,
+            torch.cuda.current_stream().cuda_stream)
+    keep = (D, I, nn)
+
+    def launch():
+        if lib.knn_select_launch(*args) != 0:
+            raise RuntimeError("knn_select_launch failed")
+        return keep
+
+    return launch
 
 
 def build_kernel_map(cfg, device, frames=(0, 5, 10, 15, 20, 25, 30)):
@@ -190,8 +349,9 @@ def knn_bound(grid, queries, k):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def kernel_phase(cfg, device):
-    """Kernel against plain version at the main path's shapes."""
+def kernel_phase(cfg, device, variant_libs):
+    """Kernel against plain version at the main path's shapes; each
+    variant build in variant_libs timed beside it."""
     import torch
 
     from loopy_slam_torch.ops import knn
@@ -226,18 +386,34 @@ def kernel_phase(cfg, device):
         same_nn = bool(torch.equal(nn, nnp))
         same_D = bool(torch.equal(D.view(torch.int32), Dp.view(torch.int32)))
         err = float((D - Dp).abs().max())
-        ms = time_cuda(lambda: knn._query_cuda(grid, q, k, r))
+        same_bare, variants = True, {}
+        for vname, lib in [("kernel", None), *variant_libs.items()]:
+            launch = bare_launch(grid, q, k, r, lib)
+            Db, Ib, nnb = launch()
+            torch.cuda.synchronize()
+            if lib is None or VARIANTS[vname][1]:
+                same_bare &= bool(
+                    torch.equal(Db.view(torch.int32), D.view(torch.int32))
+                    and torch.equal(Ib, I) and torch.equal(nnb, nn))
+            variants[vname] = time_device(launch)
+        ms, ms_warm = variants.pop("kernel")
+        call_ms = time_cuda(lambda: knn._query_cuda(grid, q, k, r))
         plain_ms = time_cuda(lambda: knn._query_plain(grid, q, k, r))
         bound_ms, bound_by, nbytes, ops = knn_bound(grid, q, k)
         res = {"shape": name, "Q": int(q.shape[0]), "M": int(M),
                "id_bits": knn._id_bits(M), "D_bit_equal": same_D,
                "I_equal": same_I, "nn_equal": same_nn,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bare_launch_equal": same_bare,
+               "max_abs_err": err, "ms": ms, "ms_warm": ms_warm,
+               "call_ms": call_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
+               "share_of_bound": bound_ms / ms,
                "bytes": nbytes, "ops": ops,
                "mean_neighbors": float(nn.float().mean())}
+        if variants:
+            res["variants"] = {n: v[0] for n, v in variants.items()}
         print(json.dumps(res), flush=True)
-        if not (same_D and same_I and same_nn):
+        if not (same_D and same_I and same_nn and same_bare):
             raise AssertionError(f"knn_select disagrees with the plain "
                                  f"version at {name}")
         results.append(res)
@@ -347,6 +523,8 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=31)
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler trace of a 6-frame session")
+    ap.add_argument("--variants", action="store_true",
+                    help="also build and time the VARIANTS of knn_select.cu")
     args = ap.parse_args(argv)
 
     import torch
@@ -364,6 +542,10 @@ def main(argv=None) -> int:
           torch.version.cuda, "|", sys.version.split()[0], flush=True)
 
     t0 = time.perf_counter()
+    variant_libs = {}
+    if args.variants:  # its nvcc processes run beside the kernels' build
+        variant_libs = build_variants(
+            os.path.join(HERE, "output", "chip_smoke_variants"))
     build.load_library()
     print(f"== phase 2: kernels built/loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -372,7 +554,7 @@ def main(argv=None) -> int:
 
     # the kernel check's map spans frames 0..30 whatever the slice's length
     cfg = room_config(31, os.path.join(HERE, "output", "chip_smoke"))
-    shape_results = kernel_phase(cfg, device)
+    shape_results = kernel_phase(cfg, device, variant_libs)
     summary = slice_phase(args.frames, device)
     if args.profile:
         profile_phase(device)
@@ -386,6 +568,7 @@ def main(argv=None) -> int:
         "launches": summary["knn_select_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in shape_results),
         "ms": main_shape["ms"],
+        "call_ms": main_shape["call_ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],

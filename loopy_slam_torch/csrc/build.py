@@ -97,7 +97,7 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build_library())
             fn = lib.knn_select_launch
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [vp, vp, vp, ctypes.c_float, vp, vp, vp, vp,
+            fn.argtypes = [vp, vp, vp, vp, ctypes.c_float, vp, vp, vp, vp,
                            ci, ci, ci, ci, ci, vp]
             fn.restype = ci
             _lib = lib

@@ -260,6 +260,12 @@ def _query_cuda(grid: HashGrid, queries: torch.Tensor, k: int, radius):
         raise ValueError(f"queries must be (Q, 3), got {tuple(queries.shape)}")
     if grid.cell_size.numel() != 1:
         raise ValueError("cell_size must be a scalar tensor")
+    fill = grid.cell_fill
+    if fill.device != dev or fill.dtype != torch.int32 \
+            or fill.shape != (T + 1,) or not fill.is_contiguous():
+        raise ValueError(f"cell_fill must be a contiguous int32 (T+1,) = "
+                         f"({T + 1},) tensor on {dev}, got {fill.dtype} "
+                         f"{tuple(fill.shape)} on {fill.device}")
     id_bits = _id_bits(M)
     queries = queries.contiguous()
     Q = queries.shape[0]
@@ -284,9 +290,9 @@ def _query_cuda(grid: HashGrid, queries: torch.Tensor, k: int, radius):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.knn_select_launch(
-            cd.data_ptr(), queries.data_ptr(), r_ptr, ctypes.c_float(r_scalar),
-            grid.cell_size.data_ptr(), D.data_ptr(), I.data_ptr(),
-            nn.data_ptr(), Q, T, M, id_bits, k, stream)
+            cd.data_ptr(), fill.data_ptr(), queries.data_ptr(), r_ptr,
+            ctypes.c_float(r_scalar), grid.cell_size.data_ptr(), D.data_ptr(),
+            I.data_ptr(), nn.data_ptr(), Q, T, M, id_bits, k, stream)
     if rc != 0:
         raise RuntimeError(f"knn_select launch failed with CUDA error {rc} "
                            f"(Q={Q}, T={T}, M={M}, k={k})")

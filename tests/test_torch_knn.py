@@ -211,3 +211,145 @@ def test_query_chunked_matches_unchunked():
         assert torch.equal(I0, I1) and torch.equal(n0, n1)
         assert torch.equal(D0.view(torch.int32), D1.view(torch.int32))
 
+
+
+# --- the invariant the CUDA kernel relies on: rows filled from slot 0 ----
+
+def grid_of_kind(kind, rng):
+    """(torch grid, points) for each way the port's grids are made."""
+    if kind == "build":  # 2500 points in 1024 rows: some rows overflow
+        pts, valid = make_points(rng)
+        return tk.build(t(pts), t(valid), 0.1, 2 ** 10, 16), pts
+    if kind == "build_adaptive":
+        pts, valid = make_points(rng, cap=4000, n=4000, lo=-0.2, hi=0.2)
+        return tk.build_adaptive(t(pts), t(valid), 0.1, 2 ** 8, 4), pts
+    if kind == "insert":  # repeated inserts into full rows: drops
+        pts = rng.uniform(-0.3, 0.3, (4000, 3)).astype(np.float32)
+        valid = np.arange(4000) < 500
+        g = tk.build(t(pts), t(valid), 0.1, 2 ** 10, 16)
+        for lo in range(500, 4000, 700):
+            hi = min(lo + 700, 4000)
+            nv = rng.uniform(size=hi - lo) < 0.9
+            g = tk.insert(g, t(pts[lo:hi]), torch.arange(lo, hi).int(), t(nv))
+        assert int(g.n_dropped) > 0
+        return g, pts
+    assert kind == "jax_convert"  # a JAX grid, built then grown by insert
+    from loopy_slam_torch.convert import map_state_from_numpy
+
+    pts, valid = make_points(rng)
+    gj = jk.build(jnp.asarray(pts), jnp.asarray(valid), 0.1, 2 ** 10, 16)
+    gj = jk.insert(gj, 2 ** 10, jnp.asarray(pts[2500:]),
+                   jnp.arange(2500, 3000, dtype=jnp.int32),
+                   jnp.ones(500, bool))
+    state = map_state_from_numpy(
+        pts, np.zeros((3000, 4), np.float32), 3000, np.asarray(gj.cell_data),
+        np.asarray(gj.cell_fill), np.asarray(gj.cell_size),
+        np.asarray(gj.n_dropped))
+    return state.grid, pts
+
+
+GRID_KINDS = ["build", "build_adaptive", "insert", "jax_convert"]
+
+
+@pytest.mark.parametrize("kind", GRID_KINDS)
+def test_rows_filled_from_slot_zero(rng, kind):
+    """Slots [0, cell_fill[h]) of every row hold real points and slots
+    [cell_fill[h], M) the empty sentinel; the overflow row has fill 0."""
+    g, pts = grid_of_kind(kind, rng)
+    T, M = g.cell_data.shape[0] - 1, g.cell_data.shape[1]
+    assert g.cell_fill.dtype == torch.int32 and g.cell_fill.shape == (T + 1,)
+    assert int(g.cell_fill[T]) == 0
+    fill = g.cell_fill.long()
+    filled = torch.arange(M)[None, :] < fill[:, None]
+    words = g.cell_data.view(torch.int32)
+    empty = (words == tk._empty_row("cpu").view(torch.int32)).all(-1)
+    assert torch.equal(empty, ~filled)
+    # a filled slot holds a point of the buffer, at its own coordinates
+    idx = (words[..., 3][filled] & (tk._IDX_TAG - 1)).long()
+    assert bool(((words[..., 3][filled] & tk._IDX_TAG) != 0).all())
+    assert bool((idx < len(pts)).all())
+    np.testing.assert_array_equal(g.cell_data[filled][:, :3].numpy(),
+                                  pts[idx.numpy()])
+
+
+def query_filled_slots(grid, queries, k, radius):
+    """The k-NN function read as the CUDA kernel reads it: only the slots
+    [0, cell_fill[h]) of each stencil row (a redirected repeat probe reads
+    the overflow row, whose fill is 0), keyed by the same probe * M + slot
+    ids; a skipped slot leaves the exhausted key 0x7fffffff."""
+    T, M = grid.cell_data.shape[0] - 1, grid.cell_data.shape[1]
+    Q, S = queries.shape[0], tk._S
+    id_mask = (1 << tk._id_bits(M)) - 1
+    h = tk.stencil_rows(grid, queries)
+    rows = grid.cell_data[h]  # (Q, S, M, 4)
+    read = torch.arange(M) < grid.cell_fill.long()[h][..., None]
+    d = rows[..., :3] - queries[:, None, None, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    gid = (torch.arange(S)[:, None] * M + torch.arange(M)).int()
+    key = (d2.view(torch.int32) & ~id_mask) | gid
+    key = torch.where(read, key, 0x7fffffff).reshape(Q, S * M)
+    top, pos = torch.topk(key, k, dim=1, largest=False, sorted=True)
+    D = (top | id_mask).view(torch.float32)
+    I = torch.gather(rows[..., 3].reshape(Q, S * M).view(torch.int32), 1,
+                     pos) & (tk._IDX_TAG - 1)
+    hit = D < 1e10
+    I = torch.where(hit, I, 0)
+    D = torch.where(hit, D, torch.full((), 1e10))
+    r = torch.as_tensor(radius, dtype=torch.float32)
+    r2 = (r * r)[:, None] if r.dim() == 1 else r * r
+    return D, I, torch.sum(D < r2, dim=-1).to(torch.int32)
+
+
+@pytest.mark.parametrize("kind", GRID_KINDS)
+def test_filled_slot_scan_equals_plain(rng, kind):
+    """Skipping the empty slots changes no output: bit-equal D, I and
+    neighbor_num, with queries past the map (fewer than k candidates) and
+    at negative coordinates, for k = 8 and 16 and a per-query radius."""
+    g, _ = grid_of_kind(kind, rng)
+    q = t(rng.uniform(-0.7, 0.7, (300, 3)).astype(np.float32))
+    r = t(rng.uniform(0.02, 0.1, 300).astype(np.float32))
+    for k, radius in ((8, 0.06), (16, r)):
+        D, I, nn = query_filled_slots(g, q, k, radius)
+        Dp, Ip, nnp = tk._query_plain(g, q, k, radius)
+        assert torch.equal(D.view(torch.int32), Dp.view(torch.int32))
+        assert torch.equal(I, Ip) and torch.equal(nn, nnp)
+        assert bool((D == 1e10).any()) and int(nn.sum()) > 0
+
+
+def stencil_has_repeat(base, T):
+    """The CUDA kernel's test for a repeated hash among a query's 27 probes,
+    in uint32 arithmetic as knn_select.cu does it: with X_i = ((b_x + i - 1)
+    * P1) & mask (Y, Z alike), probe (i, j, l) hashes to X_i ^ Y_j ^ Z_l,
+    so two probes collide iff some xor of per-axis differences
+    X_i ^ X_i' (i < i') taken on one, two or three axes is 0."""
+    mask = np.uint32(T - 1)
+    b = base.astype(np.uint32)
+    pairs = [(-1, 0), (-1, 1), (0, 1)]
+    with np.errstate(over="ignore"):
+        d = [[(((b[:, ax] + np.uint32(lo & 0xffffffff)) * np.uint32(p))
+               ^ ((b[:, ax] + np.uint32(hi & 0xffffffff)) * np.uint32(p)))
+              & mask for lo, hi in pairs]
+             for ax, p in enumerate((tk._P1, tk._P2, tk._P3))]
+    hit = np.zeros(len(base), bool)
+    for dx in d[0]:
+        for dy in d[1]:
+            for dz in d[2]:
+                hit |= ((dx == 0) | (dy == 0) | (dz == 0) | (dx == dy)
+                        | (dx == dz) | (dy == dz) | (dx == (dy ^ dz)))
+    return hit
+
+
+@pytest.mark.parametrize("T", [1, 4, 2 ** 10, 2 ** 17])
+def test_stencil_repeat_test_is_exact(rng, T):
+    """The kernel runs __match_any_sync only where this test fires, so it
+    must find every repeated probe hash (and, to stay cheap, few others):
+    held against the 27 hashes themselves, for base cells near the origin
+    and anywhere in int32."""
+    base = rng.integers(-2 ** 31, 2 ** 31, size=(6000, 3))
+    base[:1000] = rng.integers(-40, 40, size=(1000, 3))
+    h = tk._hash_cells(torch.as_tensor(base, dtype=torch.int32)[:, None, :]
+                       + torch.as_tensor(tk._OFFSETS27)[None], T).numpy()
+    repeated = np.array([len(np.unique(r)) < tk._S for r in h])
+    np.testing.assert_array_equal(stencil_has_repeat(base, T), repeated)
+    if T <= 2 ** 10:
+        assert repeated.any()

@@ -34,10 +34,21 @@ def grid_and_queries(dev, M, Q=5000, T=2 ** 10, seed=0):
     return g, q.to(dev), r.to(dev)
 
 
-@pytest.mark.parametrize("k", [8, 16])
+def assert_kernel_equals_plain(g, q, k, radius):
+    D, I, nn = knn._query_cuda(g, q, k, radius)
+    torch.cuda.synchronize()
+    Dp, Ip, nnp = knn._query_plain(g, q, k, radius)
+    assert torch.equal(D.view(torch.int32), Dp.view(torch.int32))
+    assert torch.equal(I, Ip) and torch.equal(nn, nnp)
+    return D, I, nn
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 16])
 @pytest.mark.parametrize("per_query_radius", [False, True])
-@pytest.mark.parametrize("M", [16, 32, 128])
+@pytest.mark.parametrize("M", [16, 32, 128, 256])
 def test_kernel_bit_equal_to_plain(dev, M, per_query_radius, k):
+    """Q = 5000 is no multiple of a block's queries; the queries reach past
+    the map (fewer than k candidates) and into negative coordinates."""
     g, q, r = grid_and_queries(dev, M)
     radius = r if per_query_radius else 0.06
     n0 = knn.KNN_SELECT_LAUNCHES.count
@@ -48,6 +59,82 @@ def test_kernel_bit_equal_to_plain(dev, M, per_query_radius, k):
     assert torch.equal(D.view(torch.int32), Dp.view(torch.int32))
     assert torch.equal(I, Ip) and torch.equal(nn, nnp)
     assert int(nn.sum()) > 0
+    if M == 16:  # 2500 points in 1024 rows overflow some rows: filled to M
+        assert int(g.n_dropped) > 0
+        assert int(g.cell_fill[:-1].max()) == M
+
+
+@pytest.mark.parametrize("Q", [1, 33, 4999])
+@pytest.mark.parametrize("k", [5, 16])
+def test_kernel_partial_groups_and_blocks(dev, k, Q):
+    """Query counts that leave a lane group, a warp and a block partly
+    empty."""
+    g, q, r = grid_and_queries(dev, 32, Q=Q, seed=2)
+    assert_kernel_equals_plain(g, q, k, r)
+    assert_kernel_equals_plain(g, q, k, 0.06)
+
+
+def test_kernel_reads_no_slot_past_the_fill(dev):
+    """A real point written at slot cell_fill[h] of the row each query's own
+    cell hashes to, with cell_fill unchanged: the kernel must skip it and
+    give the clean grid's answer, which the plain version (it reads every
+    slot) does not."""
+    g, q, r = grid_and_queries(dev, 32, Q=2000, seed=5)
+    T, M = g.cell_data.shape[0] - 1, g.cell_data.shape[1]
+    h = knn._hash_cells(knn._cell_of(q, g.cell_size), T).long()
+    slot = g.cell_fill[h].long()
+    open_ = slot < M
+    assert int(open_.sum()) > 1000
+    tag = torch.full((int(open_.sum()), 1), knn._IDX_TAG | 7,
+                     dtype=torch.int32, device=dev).view(torch.float32)
+    cd = g.cell_data.clone()
+    cd[h[open_], slot[open_]] = torch.cat([q[open_], tag], dim=1)
+    poisoned = g._replace(cell_data=cd)
+    Dc, Ic, nnc = knn._query_plain(g, q, 8, r)
+    _, Ip, _ = knn._query_plain(poisoned, q, 8, r)
+    assert not torch.equal(Ic, Ip)  # the past-the-fill points are near
+    D, I, nn = knn._query_cuda(poisoned, q, 8, r)
+    torch.cuda.synchronize()
+    assert torch.equal(D.view(torch.int32), Dc.view(torch.int32))
+    assert torch.equal(I, Ic) and torch.equal(nn, nnc)
+
+
+def test_kernel_rows_of_16_id_bits(dev):
+    """M = 2427, the widest row 16 id bits hold, every row filled to M:
+    22000 points in the 8 cells of [0, 0.2)^3 overflow each row."""
+    rng = np.random.default_rng(3)
+    M = 2427
+    assert knn._id_bits(M) == 16
+    pts = torch.as_tensor(rng.uniform(0, 0.2, (22000, 3)).astype(np.float32))
+    g = knn.build(pts.to(dev), torch.ones(22000, dtype=torch.bool,
+                                          device=dev), 0.1, 2 ** 10, M)
+    fill = g.cell_fill[:-1]
+    assert int(g.n_dropped) > 0 and int((fill == M).sum()) == 8
+    q = torch.as_tensor(rng.uniform(-0.05, 0.25, (61, 3)).astype(np.float32))
+    for k in (1, 16):
+        assert_kernel_equals_plain(g, q.to(dev), k, 0.05)
+
+
+def test_kernel_after_inserts_with_drops(dev):
+    """A grid grown by insert (slot order differs from build's) until rows
+    overflow, queried where some queries have fewer than k candidates."""
+    rng = np.random.default_rng(4)
+    pts = torch.as_tensor(rng.uniform(-0.3, 0.3, (4000, 3))
+                          .astype(np.float32)).to(dev)
+    valid = torch.zeros(4000, dtype=torch.bool, device=dev)
+    valid[:500] = True
+    g = knn.build(pts, valid, 0.1, 2 ** 12, 16)
+    for lo in range(500, 4000, 700):
+        hi = min(lo + 700, 4000)
+        g = knn.insert(g, pts[lo:hi],
+                       torch.arange(lo, hi, dtype=torch.int32, device=dev),
+                       torch.ones(hi - lo, dtype=torch.bool, device=dev))
+    assert int(g.n_dropped) > 0
+    q = torch.as_tensor(rng.uniform(-0.6, 0.6, (3001, 3))
+                        .astype(np.float32)).to(dev)
+    r = torch.as_tensor(rng.uniform(0.02, 0.1, 3001).astype(np.float32))
+    D, _, _ = assert_kernel_equals_plain(g, q, 16, r.to(dev))
+    assert bool((D == 1e10).any()) and bool((D < 1e10).any())
 
 
 def test_kernel_empty_map_and_stencil_collisions(dev):
@@ -71,5 +158,11 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         knn._query_cuda(g, q.cpu(), 8, 0.06)  # grid and queries apart
     with pytest.raises(TypeError):
         knn._query_cuda(g, q.double(), 8, 0.06)
+    with pytest.raises(ValueError):  # cell_fill of the wrong type
+        knn._query_cuda(g._replace(cell_fill=g.cell_fill.long()), q, 8, 0.06)
+    with pytest.raises(ValueError):  # cell_fill of the wrong length
+        knn._query_cuda(g._replace(cell_fill=g.cell_fill[:-1]), q, 8, 0.06)
+    with pytest.raises(ValueError):  # cell_fill on another device
+        knn._query_cuda(g._replace(cell_fill=g.cell_fill.cpu()), q, 8, 0.06)
     D, I, nn = knn._query_cuda(g, q[:0], 8, 0.06)  # no queries: no launch
     assert D.shape == (0, 8) and nn.shape == (0,)

@@ -89,6 +89,22 @@ def test_chip_smoke_config_equals_room_yaml():
     assert got["mapping"]["segment_strategy"] == "none"
 
 
+@pytest.mark.parametrize("name", [
+    "group_16", "group_32", "match_every_query", "reduce_min_merge",
+    "no_scan", "no_scan_no_merge", "empty"])
+def test_chip_smoke_variants_edit_the_kernel_source(name):
+    """Each edit of `chip_smoke.py --variants` matches knn_select.cu exactly
+    once, so the variants keep tracking the kernel they are timed beside."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    assert name in chip_smoke.VARIANTS and len(chip_smoke.VARIANTS) == 7
+    with open(os.path.join(ROOT, "loopy_slam_torch", "csrc",
+                           "knn_select.cu")) as f:
+        src = f.read()
+    assert chip_smoke.variant_source(src, name) != src
+
+
 def test_chip_smoke_refuses_without_a_card():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,

@@ -16,11 +16,24 @@ Phases:
      `call_ms` (the wrapper's whole call, as the main path pays it, median
      of 20), beside the plain version's `plain_ms` and the bound; with
      --variants, also `variants`: the cold ms of each variant build;
-  4. runs the slice: LoopySLAM on configs/Synthetic/room.yaml's values
-     (segment_strategy none, color_refine off, visualizer off) for 31
-     frames, with the kernels' launch counts reset just before, and gates
-     on launches > 0, ATE (aligned) <= 3 mm and no health-gate rejects;
-  5. (only with --profile) a torch.profiler trace of a
+  4. runs the slice-1 path: LoopySLAM on configs/Synthetic/room.yaml's
+     values (segment_strategy none, color_refine off, visualizer off) for
+     31 frames, with the kernels' launch counts reset just before, and
+     gates on launches > 0, ATE (aligned) <= 3 mm and no health-gate
+     rejects;
+  5. runs the segmented path: room.yaml as shipped (segment_strategy
+     rot_trans, color_refine on, visualizer off) with
+     mapping.segment_rel_trans 0.05, tracking.kval 3 and
+     tracking.dbow_filter off for 31 frames, so that segments close every
+     mapped frame and loop closure reaches the pose-graph solve;
+     prints a `segments:` line (segments, each correction round,
+     registration/PGO/TSDF/mesh/ORB times, the merged map and its index,
+     the color-refine time, medians, ATE, launches, peak memory) and gates
+     on >= 4 segments, >= 1 pose-graph solve, ATE <= 3 mm, no rejects,
+     launches > 0 and finite poses (a drop in the merged map raises); then
+     holds the kernel against its plain version at a fourth shape, the
+     color-refine pool over the merged map;
+  6. (only with --profile) a torch.profiler trace of a
      6-frame session: device kernel time by kernel, and the device's busy
      share of the wall time (the profiler's own host cost included). The
      profiler's post-processing of ~1.8M kernel events takes about a
@@ -65,12 +78,28 @@ ROOM = {
     "pointcloud": {"capacity": 262144, "cell_table_size": 131072},
     "pretrained_decoders": {"middle_fine": "pretrained/geo_decoder.pkl"},
 }
-# the slice: one global map, no color refinement, no visualizer
+# the slice-1 path: one global map, no color refinement, no visualizer
 SLICE_OVERRIDES = {
     "mapping": {"segment_strategy": "none", "color_refine": False,
                 "vis_freq": 0},
     "tracking": {"vis_freq": 0},
 }
+# the segmented path: room.yaml's own submaps and color refinement, with a
+# segment trigger of 5 cm so the 31 frames close a segment at every mapped
+# frame (the shipped 0.30 m closes one in 31 frames, and the correction
+# needs more than 3 closed segments), and place recognition as the JAX
+# package's own segmented test sets it (kval 3, no ORB-baseline floor):
+# with room.yaml's kval 2 the best two anchors are the query's own and its
+# neighbour's, which min_dist excludes, and anchors two segments apart
+# score ~0.43-0.48 against segment baselines of ~0.50, so no loop edge is
+# ever proposed on this trajectory and the pose graph is never solved
+SEGMENTED_OVERRIDES = {
+    "mapping": {"segment_rel_trans": 0.05, "vis_freq": 0},
+    "tracking": {"vis_freq": 0, "kval": 3, "dbow_filter": False},
+}
+# frames of the segmented path: fewer frames propose no loop edge, so the
+# pose graph is never solved
+SEGMENTED_FRAMES = 31
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 (non-tensor)
 PEAK_BYTES_S = 3.35e12
@@ -78,12 +107,13 @@ PEAK_F32_FLOPS = 67e12
 ATE_GATE_M = 0.003
 
 
-def room_config(n_frames: int, output: str):
+def room_config(n_frames: int, output: str, overrides=None):
     from loopy_slam_torch.config import DEFAULTS, update_recursive
 
     cfg = copy.deepcopy(DEFAULTS)
     update_recursive(cfg, copy.deepcopy(ROOM))
-    update_recursive(cfg, copy.deepcopy(SLICE_OVERRIDES))
+    update_recursive(cfg, copy.deepcopy(
+        SLICE_OVERRIDES if overrides is None else overrides))
     cfg["data"]["n_frames"] = int(n_frames)
     cfg["data"]["output"] = output
     return cfg
@@ -349,6 +379,56 @@ def knn_bound(grid, queries, k):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
+def check_shape(name, grid, q, k, r, variant_libs=None):
+    """The kernel against its plain version on one shape (bit-equal D, I
+    and neighbor_num, by the wrapper and by a bare launch), its times and
+    its bound; raises on any disagreement."""
+    import torch
+
+    from loopy_slam_torch.ops import knn
+
+    M = grid.cell_data.shape[1]
+    D, I, nn = knn._query_cuda(grid, q, k, r)
+    Dp, Ip, nnp = knn._query_plain(grid, q, k, r)
+    torch.cuda.synchronize()
+    same_I = bool(torch.equal(I, Ip))
+    same_nn = bool(torch.equal(nn, nnp))
+    same_D = bool(torch.equal(D.view(torch.int32), Dp.view(torch.int32)))
+    err = float((D - Dp).abs().max())
+    same_bare, variants = True, {}
+    for vname, lib in [("kernel", None), *(variant_libs or {}).items()]:
+        launch = bare_launch(grid, q, k, r, lib)
+        Db, Ib, nnb = launch()
+        torch.cuda.synchronize()
+        if lib is None or VARIANTS[vname][1]:
+            same_bare &= bool(
+                torch.equal(Db.view(torch.int32), D.view(torch.int32))
+                and torch.equal(Ib, I) and torch.equal(nnb, nn))
+        variants[vname] = time_device(launch)
+    ms, ms_warm = variants.pop("kernel")
+    call_ms = time_cuda(lambda: knn._query_cuda(grid, q, k, r))
+    plain_ms = time_cuda(lambda: knn._query_plain(grid, q, k, r))
+    bound_ms, bound_by, nbytes, ops = knn_bound(grid, q, k)
+    res = {"shape": name, "Q": int(q.shape[0]), "M": int(M),
+           "table": int(grid.cell_data.shape[0] - 1),
+           "id_bits": knn._id_bits(M), "D_bit_equal": same_D,
+           "I_equal": same_I, "nn_equal": same_nn,
+           "bare_launch_equal": same_bare,
+           "max_abs_err": err, "ms": ms, "ms_warm": ms_warm,
+           "call_ms": call_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / ms,
+           "bytes": nbytes, "ops": ops,
+           "mean_neighbors": float(nn.float().mean())}
+    if variants:
+        res["variants"] = {n: v[0] for n, v in variants.items()}
+    print(json.dumps(res), flush=True)
+    if not (same_D and same_I and same_nn and same_bare):
+        raise AssertionError(f"knn_select disagrees with the plain "
+                             f"version at {name}")
+    return res
+
+
 def kernel_phase(cfg, device, variant_libs):
     """Kernel against plain version at the main path's shapes; each
     variant build in variant_libs timed beside it."""
@@ -376,54 +456,17 @@ def kernel_phase(cfg, device, variant_libs):
         ("track_pool Q=30000 M=128", grid_128,
          pool_queries(views, frames[-1:], 6000, cfg, draw)),
     ]
-    results = []
-    for name, grid, q in shapes:
-        M = grid.cell_data.shape[1]
-        D, I, nn = knn._query_cuda(grid, q, k, r)
-        Dp, Ip, nnp = knn._query_plain(grid, q, k, r)
-        torch.cuda.synchronize()
-        same_I = bool(torch.equal(I, Ip))
-        same_nn = bool(torch.equal(nn, nnp))
-        same_D = bool(torch.equal(D.view(torch.int32), Dp.view(torch.int32)))
-        err = float((D - Dp).abs().max())
-        same_bare, variants = True, {}
-        for vname, lib in [("kernel", None), *variant_libs.items()]:
-            launch = bare_launch(grid, q, k, r, lib)
-            Db, Ib, nnb = launch()
-            torch.cuda.synchronize()
-            if lib is None or VARIANTS[vname][1]:
-                same_bare &= bool(
-                    torch.equal(Db.view(torch.int32), D.view(torch.int32))
-                    and torch.equal(Ib, I) and torch.equal(nnb, nn))
-            variants[vname] = time_device(launch)
-        ms, ms_warm = variants.pop("kernel")
-        call_ms = time_cuda(lambda: knn._query_cuda(grid, q, k, r))
-        plain_ms = time_cuda(lambda: knn._query_plain(grid, q, k, r))
-        bound_ms, bound_by, nbytes, ops = knn_bound(grid, q, k)
-        res = {"shape": name, "Q": int(q.shape[0]), "M": int(M),
-               "id_bits": knn._id_bits(M), "D_bit_equal": same_D,
-               "I_equal": same_I, "nn_equal": same_nn,
-               "bare_launch_equal": same_bare,
-               "max_abs_err": err, "ms": ms, "ms_warm": ms_warm,
-               "call_ms": call_ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "share_of_bound": bound_ms / ms,
-               "bytes": nbytes, "ops": ops,
-               "mean_neighbors": float(nn.float().mean())}
-        if variants:
-            res["variants"] = {n: v[0] for n, v in variants.items()}
-        print(json.dumps(res), flush=True)
-        if not (same_D and same_I and same_nn and same_bare):
-            raise AssertionError(f"knn_select disagrees with the plain "
-                                 f"version at {name}")
-        results.append(res)
+    results = [check_shape(name, grid, q, k, r, variant_libs)
+               for name, grid, q in shapes]
     del state, views, grid_128
     torch.cuda.empty_cache()
     return results
 
 
-def slice_phase(n_frames, device):
-    """LoopySLAM on the synthetic room at full width."""
+def run_session(cfg, device):
+    """LoopySLAM(cfg).run() with the kernels' launch counts reset just
+    before the run and read just after. Returns (slam, result, summary)
+    with the summary's common numbers and ATE."""
     import numpy as np
     import torch
 
@@ -431,10 +474,7 @@ def slice_phase(n_frames, device):
     from loopy_slam_torch.slam import LoopySLAM
     from loopy_slam_torch.tools.eval_ate import evaluate_trajectories
 
-    print(f"== phase 4: slice run, synthetic room, {n_frames} frames",
-          flush=True)
-    out = os.path.join(HERE, "output", "chip_smoke")
-    cfg = room_config(n_frames, out)
+    out = cfg["data"]["output"]
     t0 = time.perf_counter()
     slam = LoopySLAM(cfg, output=out, device=device)
     try:
@@ -448,10 +488,9 @@ def slice_phase(n_frames, device):
     finally:
         slam.close()
     stats = evaluate_trajectories(result["estimate_c2w"], result["gt_c2w"])
-    rejects = int(slam.track_health[1].item())
     med = {k: float(np.median(v)) for k, v in slam.timings.items() if v}
     summary = {
-        "frames": n_frames,
+        "frames": cfg["data"]["n_frames"],
         "track_median_s": med.get("track"), "map_median_s": med.get("map"),
         "data_median_s": med.get("data"),
         "upload_median_s": med.get("upload"),
@@ -459,21 +498,125 @@ def slice_phase(n_frames, device):
         "map_times_s": slam.timings["map"],
         "setup_s": t_run - t0, "run_s": t_end - t_run,
         "wall_s": t_end - t0, "n_points": result["n_points"],
-        "health_rejects": rejects, "ate_rmse_m": stats["rmse"],
+        "health_rejects": int(slam.track_health[1].item()),
+        "ate_rmse_m": stats["rmse"],
         "ate_rmse_noalign_m": stats["rmse_no_align"],
         "knn_select_launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    print("slice:", json.dumps(summary), flush=True)
+    return slam, result, summary
+
+
+def gate_session(summary, result, what):
+    import numpy as np
+
     if not np.isfinite(result["estimate_c2w"]).all():
-        raise AssertionError("non-finite pose estimates")
-    if launches <= 0:
-        raise AssertionError("the slice never launched the knn_select kernel")
-    if stats["rmse"] > ATE_GATE_M:
-        raise AssertionError(f"ATE {stats['rmse']:.5f} m > {ATE_GATE_M} m")
-    if rejects:
-        raise AssertionError(f"{rejects} tracking health-gate rejects")
+        raise AssertionError(f"{what}: non-finite pose estimates")
+    if summary["knn_select_launches"] <= 0:
+        raise AssertionError(f"{what} never launched the knn_select kernel")
+    if summary["ate_rmse_m"] > ATE_GATE_M:
+        raise AssertionError(f"{what}: ATE {summary['ate_rmse_m']:.5f} m > "
+                             f"{ATE_GATE_M} m")
+    if summary["health_rejects"]:
+        raise AssertionError(f"{what}: {summary['health_rejects']} tracking "
+                             "health-gate rejects")
+
+
+def slice_phase(n_frames, device):
+    """The slice-1 path: LoopySLAM on the synthetic room at full width,
+    one global map."""
+    print(f"== phase 4: slice-1 path, synthetic room, {n_frames} frames",
+          flush=True)
+    cfg = room_config(n_frames, os.path.join(HERE, "output", "chip_smoke"))
+    _, result, summary = run_session(cfg, device)
+    print("slice:", json.dumps(summary), flush=True)
+    gate_session(summary, result, "the slice-1 path")
     return summary
+
+
+MIN_SEGMENTS = 4
+
+
+def segmented_phase(device):
+    """The segmented path: room.yaml's submaps, loop closure and color
+    refinement at full width. Returns (summary, slam)."""
+    import numpy as np
+
+    n_frames = SEGMENTED_FRAMES
+
+    print(f"== phase 5: segmented path, synthetic room, {n_frames} frames",
+          flush=True)
+    cfg = room_config(n_frames, os.path.join(HERE, "output",
+                                             "chip_smoke_segments"),
+                      SEGMENTED_OVERRIDES)
+    slam, result, summary = run_session(cfg, device)
+    grid = slam.map_state.grid
+    st = slam.seg_timings
+    summary.update({
+        "segments": len(slam.fm.fragments),
+        "segment_starts": [f.start_idx for f in slam.fm.fragments],
+        "correction_rounds": slam.lc.rounds,
+        "registration_times_s": slam.lc.registration_times,
+        "pgo_times_s": slam.lc.pgo_times,
+        "tsdf_fuse_s": st["tsdf_fuse"], "extract_mesh_s": st["extract_mesh"],
+        "orb_frame_median_s": (float(np.median(st["orb_frame"]))
+                               if st["orb_frame"] else None),
+        "orb_frames": len(st["orb_frame"]),
+        "dbow_scores": slam.lc.dbow_scores,
+        "reg_points": [None if f.reg_points is None else len(f.reg_points)
+                       for f in slam.fm.fragments],
+        "merged_points": int(slam.map_state.count),
+        "merged_index_M": int(grid.cell_data.shape[1]),
+        "merged_index_table": int(grid.cell_data.shape[0] - 1),
+        "merged_n_dropped": int(grid.n_dropped),
+        "color_refine_s": slam.timings.get("color_refine", [None])[-1],
+        "host_cpus": os.cpu_count(),
+    })
+    print("segments:", json.dumps(summary), flush=True)
+    gate_session(summary, result, "the segmented path")
+    if summary["segments"] < MIN_SEGMENTS:
+        raise AssertionError(f"{summary['segments']} segments < "
+                             f"{MIN_SEGMENTS}")
+    if not any(r["solved"] for r in slam.lc.rounds):
+        raise AssertionError("no loop-closure round reached the pose-graph "
+                             "solve")
+    if summary["merged_n_dropped"]:
+        raise AssertionError("the merged map's index dropped points")
+    if summary["color_refine_s"] is None:
+        raise AssertionError("color refinement did not run")
+    return summary, slam
+
+
+def refine_pool_check(slam, cfg):
+    """The kernel against its plain version at the color-refine pool's
+    shape: the merged global map's index, queried at the mapper's pool
+    over the refine window (every segment anchor and the last frame,
+    pixel_pool_factor x pixels / 10 rays each, N_surface samples a ray)."""
+    import torch
+
+    print("== phase 5b: knn_select at the color-refine pool shape",
+          flush=True)
+    dev = slam.device
+    views = {}
+    frames = list(slam.fm.fragments)
+    for i, f in enumerate(frames):
+        views[i] = (torch.as_tensor(f.gt_color, device=dev),
+                    torch.as_tensor(f.gt_depth, device=dev),
+                    torch.as_tensor(f.anchor_est, device=dev))
+    last = slam.n_img - 1
+    _, c_np, d_np, _ = slam.dataset[last]
+    views[len(frames)] = (torch.as_tensor(c_np, device=dev),
+                          torch.as_tensor(d_np, device=dev),
+                          torch.as_tensor(slam.estimate_c2w[last],
+                                          device=dev))
+    m = cfg["mapping"]
+    per_frame = m.get("pixel_pool_factor", 8) * max(m["pixels"] // 10, 1)
+    q = pool_queries(views, sorted(views), per_frame, cfg, slam.draw)
+    grid = slam.map_state.grid
+    name = (f"refine_pool Q={q.shape[0]} M={grid.cell_data.shape[1]} "
+            f"T={grid.cell_data.shape[0] - 1}")
+    return check_shape(name, grid, q, cfg["pointcloud"]["nn_num"],
+                       cfg["pointcloud"]["radius_query"])
 
 
 def profile_phase(device, n_frames=6, top=15):
@@ -484,7 +627,7 @@ def profile_phase(device, n_frames=6, top=15):
 
     from loopy_slam_torch.slam import LoopySLAM
 
-    print(f"== phase 5: torch.profiler over a {n_frames}-frame session",
+    print(f"== phase 6: torch.profiler over a {n_frames}-frame session",
           flush=True)
     out = os.path.join(HERE, "output", "chip_smoke_profile")
     cfg = room_config(n_frames, out)
@@ -520,7 +663,8 @@ def profile_phase(device, n_frames=6, top=15):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=31)
+    ap.add_argument("--frames", type=int, default=31,
+                    help="frames of the slice-1 path (phase 4)")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler trace of a 6-frame session")
     ap.add_argument("--variants", action="store_true",
@@ -556,6 +700,9 @@ def main(argv=None) -> int:
     cfg = room_config(31, os.path.join(HERE, "output", "chip_smoke"))
     shape_results = kernel_phase(cfg, device, variant_libs)
     summary = slice_phase(args.frames, device)
+    seg_summary, seg_slam = segmented_phase(device)
+    shape_results.append(refine_pool_check(seg_slam, seg_slam.cfg))
+    del seg_slam
     if args.profile:
         profile_phase(device)
 
@@ -565,7 +712,12 @@ def main(argv=None) -> int:
         "name": "knn_select", "route": "cuda",
         "source": "loopy_slam_torch/csrc/knn_select.cu",
         "replaces": "loopy_slam_tpu/ops/knn.py:231",
-        "launches": summary["knn_select_launches"],
+        # each path's count, reset just before its run and read just after
+        "launches": (summary["knn_select_launches"]
+                     + seg_summary["knn_select_launches"]),
+        "launches_by_path": {
+            "slice1": summary["knn_select_launches"],
+            "segmented": seg_summary["knn_select_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in shape_results),
         "ms": main_shape["ms"],
         "call_ms": main_shape["call_ms"],

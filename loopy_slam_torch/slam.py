@@ -1,5 +1,5 @@
-"""LoopySLAM orchestrator for the port's first slice: tracking and mapping
-on one device, one global map (no submaps or loop closure yet).
+"""LoopySLAM orchestrator: tracking, mapping, submaps and loop closure on
+one device.
 
 Port of loopy_slam_tpu/slam.py's host loop, with the same schedule:
 
@@ -7,9 +7,21 @@ Port of loopy_slam_tpu/slam.py's host loop, with the same schedule:
 
 Frame 0 and 1 take the ground-truth pose; every later frame is tracked from
 the constant-speed motion model; every `mapping.every_frame` frames (and the
-last) inserts points and optimizes the map over a keyframe window. A config
-that asks for a feature outside this slice raises NotImplementedError
-naming its ROADMAP.md item instead of silently running something else.
+last) inserts points and optimizes the map over a keyframe window.
+
+Submaps: with mapping.segment_strategy 'rot_trans' (the camera left its
+segment anchor) or 'fixed', a mapped frame opens a new segment: the active
+map is archived to the host and its points that the new anchor sees carry
+over. At each boundary the closed segment gets a TSDF registration cloud
+and an ORB baseline score; from four segments on, loop closure proposes
+edges by place recognition, registers them, solves the pose graph and
+moves segments, trajectory and the device map rigidly. With
+mapping.color_refine, the last frame is mapped again over the merged
+global map of all segments, with the segment anchors as the window.
+
+A config that asks for a feature outside the port raises
+NotImplementedError naming its ROADMAP.md item instead of silently running
+something else.
 """
 
 from __future__ import annotations
@@ -25,10 +37,13 @@ from . import resolve_device
 from .convert import decoders_from_numpy, decoders_to_numpy
 from .mapping import mapper as mapper_mod
 from .mapping import tracker as tracker_mod
+from .mapping.fragments import FragmentManager
+from .mapping.loop_closure import LoopCloser, LoopClosureConfig
 from .mapping.point_cloud import MapOptions, MapState, init_map, valid_mask
 from .models.decoder import init_decoders, trainable_mask
 from .models.renderer import RenderOptions
-from .ops import knn
+from .ops import knn, tsdf
+from .ops.orb import extract_orb
 from .ops.camera import tensor_from_c2w
 from .ops.draws import TorchDraws
 from .utils.datasets import get_dataset
@@ -63,7 +78,8 @@ def _vis_fires(freq, frames) -> bool:
 
 def check_slice(cfg, n_frames: int) -> None:
     """Raise NotImplementedError for any configured feature the port does
-    not have yet, naming its ROADMAP.md item."""
+    not have yet, naming its ROADMAP.md item. Submaps, loop closure and
+    color refinement (item 10) are in."""
     m, t = cfg["mapping"], cfg["tracking"]
     seg = m["segment_strategy"]
     if seg not in ("rot_trans", "fixed", "none"):
@@ -74,9 +90,6 @@ def check_slice(cfg, n_frames: int) -> None:
               if i % every == 0 or i == n_frames - 1]
     par = cfg.get("parallel", {})
     missing = [
-        (seg != "none", f"mapping.segment_strategy={seg!r} (submaps and "
-         "loop closure)", 10),
-        (m["color_refine"], "mapping.color_refine", 10),
         (t["visual_odometer"], "tracking.visual_odometer", 11),
         (int(par.get("n_devices", 0)) > 1 or par.get("map_shard", False),
          "parallel.* (multi-device)", 13),
@@ -198,6 +211,25 @@ class LoopySLAM:
         self._last_rejects = 0.0
         self.timings: Dict[str, List[float]] = {"track": [], "map": []}
 
+        # submaps + loop closure
+        self.fm = FragmentManager(
+            m["segment_rel_trans"], m["segment_rot_cos"],
+            self.H, self.W, self.fx, self.fy, self.cx, self.cy)
+        self.lc = LoopCloser(LoopClosureConfig.from_cfg(cfg), self.fm,
+                             device=self.device)
+        self.active_sensor_start = 0
+        self.registration_voxel = cfg["meshing"].get(
+            "registration_voxel", 5.0 / 512.0)
+        self.lc_enabled = m["segment_strategy"] in ("rot_trans", "fixed")
+        # host cache of the active segment's frames (color uint8, depth),
+        # filled by the run loop; the boundary's TSDF cloud and ORB
+        # baseline read it instead of reloading frames from the dataset
+        self._seg_frames: Dict[int, tuple] = {}
+        # per segment boundary: TSDF fusion and mesh extraction seconds,
+        # and the seconds of each closed-segment frame's ORB
+        self.seg_timings: Dict[str, List[float]] = {
+            "tsdf_fuse": [], "extract_mesh": [], "orb_frame": []}
+
     # ------------------------------------------------------------------
     def _take_run_lock(self):
         """One live session per output directory (advisory flock, released
@@ -312,6 +344,204 @@ class LoopySLAM:
             print(f"grew point buffer {cap} -> {new_cap}")
 
     # ------------------------------------------------------------------
+    # Submaps + loop closure
+    # ------------------------------------------------------------------
+    def _host_map(self):
+        """(pos, feat) of the active map's valid rows, as numpy."""
+        s = self.map_state
+        cnt = int(s.count)
+        return (s.pos[:cnt].cpu().numpy(),
+                s.feat[:cnt].detach().cpu().numpy())
+
+    def _device_map(self, npc, feat, cap: int) -> MapState:
+        """A fresh map of capacity `cap` holding npc/feat as its first rows,
+        indexed by build_adaptive; the input cloud carries over."""
+        s = self.map_state
+        state = init_map(self.mopts_map, capacity=cap, device=self.device)
+        n = len(npc)
+        pos, fe = state.pos, state.feat
+        if n:
+            pos[:n] = torch.as_tensor(npc, device=self.device)
+            fe[:n] = torch.as_tensor(feat, device=self.device)
+        count = torch.tensor(n, dtype=torch.int32, device=self.device)
+        grid = knn.build_adaptive(
+            pos, torch.arange(cap, device=self.device) < n,
+            self.mopts_map.cell_size, self.mopts_map.table_size,
+            self.mopts_map.max_per_cell)
+        return MapState(pos=pos, feat=fe, count=count, grid=grid,
+                        in_pos=s.in_pos, in_rgb=s.in_rgb,
+                        in_count=s.in_count)
+
+    def _start_new_segment(self, idx, cur_c2w, gt_c2w, color_np, depth_np):
+        """Close the active segment (archive it to the host, carry over the
+        points the new anchor sees) and open a new one anchored at the
+        current frame."""
+        first = not self.fm.fragments
+        des = extract_orb(color_np, self.device)
+        n_carry = 0
+        if not first:
+            s = self.map_state
+            c_dim = self.mopts_map.c_dim
+            npc, feat_host = self._host_map()
+            in_cnt = int(s.in_count)
+            spts = s.in_pos[self.active_sensor_start:in_cnt].cpu().numpy()
+            srgb = s.in_rgb[self.active_sensor_start:in_cnt].cpu().numpy()
+            carry = (self.fm.carry_over_mask(cur_c2w, npc) if len(npc)
+                     else np.zeros(0, bool))
+            self.fm.close_active(npc, feat_host[:, :c_dim],
+                                 feat_host[:, c_dim:], spts, srgb, carry)
+            # fresh active buffer seeded with the carried-over block
+            n_carry = int(carry.sum())
+            cap0 = max(self.initial_capacity,
+                       int(2 ** np.ceil(np.log2(max(n_carry + 24000, 2)))))
+            self.map_state = self._device_map(
+                npc[carry], feat_host[carry],
+                min(cap0, self.mopts_map.capacity))
+            self._count_host = n_carry
+            self.keyframe_list = []  # local keyframes restart per segment
+            if self.verbose:
+                print(f"new segment at frame {idx} "
+                      f"(carried {n_carry} points)")
+        self.active_sensor_start = int(self.map_state.in_count)
+        self.fm.start_fragment(idx, cur_c2w, gt_c2w, color_np, depth_np,
+                               des, idx_start_features=n_carry)
+        self.lc.on_new_segment(des)
+
+    def _segment_frame(self, i):
+        """A segment frame (float color, depth) from the run-loop cache,
+        else loaded from the dataset. Color round-trips uint8, as on-disk
+        datasets store it."""
+        if i in self._seg_frames:
+            c_u8, d = self._seg_frames[i]
+            return c_u8.astype(np.float32) / 255.0, d
+        _, c, d, _ = self.dataset[i]
+        return c, d
+
+    def _tsdf_registration_cloud(self, start_idx, end_idx):
+        """Fuse a segment's frames into a TSDF on the device and return the
+        mesh's vertices and colors: the segment's registration cloud. The
+        grid has fixed 192^3 dims and a voxel fitted to the segment's
+        bounds; registration downsamples to 0.04 m anyway."""
+        frames, poses = [], []
+        for i in range(start_idx, end_idx):
+            frames.append(self._segment_frame(i))
+            poses.append(self.estimate_c2w[i])
+        lo = np.array([np.inf] * 3)
+        hi = -lo
+        step = max(len(frames) // 4, 1)
+        for (c, d), p in zip(frames[::step], poses[::step]):
+            m = d > 0
+            if m.any():
+                t = p[:3, 3]
+                r = float(d[m].max())
+                lo = np.minimum(lo, t - r)
+                hi = np.maximum(hi, t + r)
+        if not np.isfinite(lo).all():
+            lo, hi = np.array([-3.0] * 3), np.array([3.0] * 3)
+        t0 = time.perf_counter()
+        grid = tsdf.fuse_frames(frames, poses, self.fx, self.fy, self.cx,
+                                self.cy, voxel=self.registration_voxel,
+                                trunc=0.04, bounds=(lo, hi),
+                                fixed_dims=(192, 192, 192),
+                                device=self.device)
+        self._sync()
+        t1 = time.perf_counter()
+        verts, _faces, cols = tsdf.extract_mesh(grid)
+        self.seg_timings["tsdf_fuse"].append(t1 - t0)
+        self.seg_timings["extract_mesh"].append(time.perf_counter() - t1)
+        return verts, cols
+
+    def _apply_loop_closure(self, idx) -> Optional[np.ndarray]:
+        """Fuse the just-closed segment's TSDF cloud, compute its ORB
+        baseline, run the correction once more than 3 segments exist, and
+        apply the solved per-segment transforms rigidly to clouds,
+        trajectory and the device map. Returns the corrected pose of the
+        current frame, or None."""
+        frags = self.fm.fragments
+        old, new = frags[-2], frags[-1]
+        old.reg_points, old.reg_colors = self._tsdf_registration_cloud(
+            old.start_idx, new.start_idx)
+        frame_des = []
+        for i in range(old.start_idx + 1, new.start_idx):
+            c, _ = self._segment_frame(i)
+            t0 = time.perf_counter()
+            frame_des.append(extract_orb(c, self.device))
+            self.seg_timings["orb_frame"].append(time.perf_counter() - t0)
+        self.lc.compute_baseline(old.anchor_des, frame_des)
+        # the closed segment's cached frames served their purpose
+        for i in list(self._seg_frames):
+            if i < new.start_idx:
+                del self._seg_frames[i]
+        if len(frags) <= 3:
+            return None
+        corrections = self.lc.compute_correction()
+        if corrections is None:
+            return None
+        if self.verbose:
+            print(f"loop closure at frame {idx}: correcting "
+                  f"{len(frags)} segments")
+        # trajectory snapshots around the pose-graph correction
+        seg_i = len(frags) - 1
+        save_checkpoint(
+            os.path.join(self.output, "ckpts", f"{seg_i:05d}_before_pgo.pkl"),
+            {"estimate_c2w_list": self.estimate_c2w.copy()})
+        for i, f in enumerate(frags):
+            N = corrections[i]
+            last = i == len(frags) - 1
+            end_idx = frags[i + 1].start_idx if not last else f.start_idx + 1
+            for name in ("npc", "sensor_pts", "reg_points"):
+                a = getattr(f, name)
+                if a is not None and len(a):
+                    setattr(f, name, a @ N[:3, :3].T + N[:3, 3])
+            rng_c2w = self.estimate_c2w[f.start_idx:end_idx]
+            corrected = np.einsum("ij,njk->nik", N, rng_c2w)
+            corrected[:, 3] = [0, 0, 0, 1.0]
+            self.estimate_c2w[f.start_idx:end_idx] = corrected
+            f.anchor_est = self.estimate_c2w[f.start_idx].copy()
+        # device: rigidly move the active segment's points; the move
+        # re-bins them against the hash lattice, so the index is rebuilt
+        # adaptively (two cells re-binned into one row can overflow it)
+        N = torch.as_tensor(corrections[-1], dtype=torch.float32,
+                            device=self.device)
+        s = self.map_state
+        pos = s.pos @ N[:3, :3].T + N[:3, 3]
+        grid = knn.build_adaptive(pos, valid_mask(s), self.mopts_map.cell_size,
+                                  self.mopts_map.table_size,
+                                  self.mopts_map.max_per_cell)
+        self.map_state = s._replace(pos=pos, grid=grid)
+        save_checkpoint(
+            os.path.join(self.output, "ckpts", f"{seg_i:05d}_after_pgo.pkl"),
+            {"estimate_c2w_list": self.estimate_c2w.copy()})
+        return self.estimate_c2w[frags[-1].start_idx].copy()
+
+    def _build_end_state(self):
+        """Merge all segments (duplicates averaged) into a fresh device map
+        indexed by build_adaptive. A point the index cannot hold even after
+        escalating row depth and table size would be invisible to every
+        k-NN afterwards, so any drop raises."""
+        c_dim = self.mopts_map.c_dim
+        npc, feat_host = self._host_map()
+        geo, col = feat_host[:, :c_dim], feat_host[:, c_dim:]
+        if len(self.fm.fragments) > 1:
+            npc, geo, col = self.fm.merged_global(npc, geo, col)
+        n = len(npc)
+        cap = int(2 ** np.ceil(np.log2(max(n + 1024, 2))))
+        self.map_state = self._device_map(
+            npc.astype(np.float32),
+            np.concatenate([geo, col], axis=1).astype(np.float32), cap)
+        merge_drops = int(self.map_state.grid.n_dropped)
+        if merge_drops:
+            raise RuntimeError(
+                f"global-merge kNN rebuild dropped {merge_drops} of {n} "
+                "points even after adaptive row/table escalation; raise "
+                "pointcloud.cell_table_size or max_per_cell")
+        self._count_host = n
+        if self.verbose:
+            g = self.map_state.grid
+            print(f"merged global map: {n} points (index M "
+                  f"{g.cell_data.shape[1]}, table {g.cell_data.shape[0] - 1})")
+
+    # ------------------------------------------------------------------
     # Mapping
     # ------------------------------------------------------------------
     def _add_keyframe(self, idx, color, depth, cur_c2w, gt_c2w):
@@ -342,82 +572,132 @@ class LoopySLAM:
                              device=self.device)
         return kc, kd, kp
 
-    def map_frame(self, idx, color, depth, gt_c2w, depth_np):
+    def map_frame(self, idx, color, depth, gt_c2w, depth_np, color_np=None,
+                  color_refine: bool = False):
+        """Map frame idx: open a segment at a boundary, insert points, run
+        loop closure, and optimize over the keyframe window. color_np (the
+        frame's float RGB) is needed at segment boundaries. With
+        color_refine, optimize the merged map of all segments instead (no
+        insertion), over the segment anchors and this frame, 5 rounds of
+        2x the iterations with the color decoder frozen."""
         cfg = self.cfg
         m = cfg["mapping"]
         init = idx == 0
         cur_c2w = self.estimate_c2w[idx]
 
+        # ---------------- submap boundary ----------------
+        new_fragment = False
+        if self.lc_enabled and not color_refine:
+            if m["segment_strategy"] == "fixed":
+                size = m["fixed_segment_size"]
+                new_fragment = (not self.fm.fragments) or (
+                    idx % size == 0
+                    and idx != self.fm.fragments[-1].start_idx)
+            else:
+                new_fragment = self.fm.should_start_new(cur_c2w)
+            if new_fragment:
+                self._start_new_segment(idx, cur_c2w, gt_c2w, color_np,
+                                        depth_np)
+
         # ---------------- point insertion ----------------
-        self._maybe_grow_capacity()
-        if init:
-            med = float(np.median(depth_np[depth_np > 0])) if (
-                depth_np > 0).any() else 2.5
-            add_n = int(np.clip(m["pixels_adding"] * (med / 2.5) ** 2,
-                                m["pixels_adding"], m["pixels_adding"] * 3))
-        else:
-            add_n = m["pixels_adding"]
-        cur_t = torch.as_tensor(cur_c2w, device=self.device)
-        prev_t = torch.as_tensor(
-            self.estimate_c2w[self.prev_mapped_idx]
-            if self.prev_mapped_idx is not None else cur_c2w,
-            device=self.device)
-        add = mapper_mod.add_points_from_frame
-        if m["filter_before_add_points"] and not init:
-            self.map_state, n1 = add(self.map_state, color, depth, cur_t,
-                                     prev_t, self.draw, self.mopts_map,
-                                     self.mopts, add_n, overlap=False)
-            self.map_state, n2 = add(self.map_state, color, depth, cur_t,
-                                     prev_t, self.draw, self.mopts_map,
-                                     self.mopts, 1000, overlap=True)
-            n_add = n1 + n2
-        else:
-            self.map_state, n_add = add(self.map_state, color, depth, cur_t,
-                                        prev_t, self.draw, self.mopts_map,
-                                        self.mopts, add_n, overlap=None)
-        frame_pts_add = int(n_add)  # the one host fetch of the insertion
-        self._count_host += frame_pts_add * self.mopts_map.N_add
-        if self.verbose:
-            print(f"{frame_pts_add} locations to add points "
-                  f"(total {self._count_host}).")
+        frame_pts_add = 0
+        if not color_refine:
+            self._maybe_grow_capacity()
+            if init:
+                med = float(np.median(depth_np[depth_np > 0])) if (
+                    depth_np > 0).any() else 2.5
+                add_n = int(np.clip(m["pixels_adding"] * (med / 2.5) ** 2,
+                                    m["pixels_adding"],
+                                    m["pixels_adding"] * 3))
+            else:
+                add_n = m["pixels_adding"]
+            cur_t = torch.as_tensor(cur_c2w, device=self.device)
+            # the previous mapped pose is read fresh from the trajectory,
+            # so a loop-closure correction since then is reflected
+            prev_t = torch.as_tensor(
+                self.estimate_c2w[self.prev_mapped_idx]
+                if self.prev_mapped_idx is not None else cur_c2w,
+                device=self.device)
+            add = mapper_mod.add_points_from_frame
+            if m["filter_before_add_points"] and not init:
+                self.map_state, n1 = add(self.map_state, color, depth, cur_t,
+                                         prev_t, self.draw, self.mopts_map,
+                                         self.mopts, add_n, overlap=False)
+                self.map_state, n2 = add(self.map_state, color, depth, cur_t,
+                                         prev_t, self.draw, self.mopts_map,
+                                         self.mopts, 1000, overlap=True)
+                n_add = n1 + n2
+            else:
+                self.map_state, n_add = add(self.map_state, color, depth,
+                                            cur_t, prev_t, self.draw,
+                                            self.mopts_map, self.mopts,
+                                            add_n, overlap=None)
+            frame_pts_add = int(n_add)  # the one host fetch of the insertion
+            self._count_host += frame_pts_add * self.mopts_map.N_add
+            if self.verbose:
+                print(f"{frame_pts_add} locations to add points "
+                      f"(total {self._count_host}).")
+
+        # ---------------- loop closure ----------------
+        if new_fragment and len(self.fm.fragments) >= 2:
+            corrected = self._apply_loop_closure(idx)
+            if corrected is not None:
+                self.estimate_c2w[idx] = corrected
+                cur_c2w = corrected
 
         # ---------------- frustum feature selection ----------------
-        if m["frustum_feature_selection"]:
+        if m["frustum_feature_selection"] and not color_refine:
             feat_mask = mapper_mod.frustum_feature_mask(
-                self.map_state.pos, self.map_state.count, cur_t, depth,
+                self.map_state.pos, self.map_state.count,
+                torch.as_tensor(cur_c2w, device=self.device), depth,
                 self.mopts)
         else:
             feat_mask = valid_mask(self.map_state)
 
         # ---------------- keyframe window ----------------
-        k = self.mapping_window_size - 2
-        window: List[Optional[int]] = []
-        if len(self.keyframe_list) > 1:
-            cand = self.keyframe_list[:-1]
-            if m["keyframe_selection_method"] == "global":
-                window = cand[max(0, len(cand) - k):]
-            else:  # 'overlap'
-                sel = mapper_mod.keyframe_selection_overlap(
-                    self.nprng, depth_np, cur_c2w,
-                    [self.kf_est_c2w[i] for i in cand], k, self.mopts)
-                window = [cand[s] for s in sel]
-        if self.keyframe_list:
-            window = window + [self.keyframe_list[-1]]
-        self.selected_keyframes[idx] = [
-            {"idx": i, "est_c2w": self.kf_est_c2w[i],
-             "gt_c2w": self.kf_gt_c2w[i]} for i in window]
-        # pad to the fixed window size, current frame LAST; padding repeats
-        # the window cyclically (equal share per frame, approximately)
-        base: List[Optional[int]] = list(window) + [None]
-        n_pad = max(self.mapping_window_size - len(base), 0)
-        pads = [base[i % len(base)] for i in range(n_pad)]
-        window = list(window) + pads + [None]
-        pix_per_frame = max(m["pixels"] // len(window), 1)
-        kc, kd, kp = self._window(window, color, depth, cur_c2w)
+        if color_refine:
+            # the merged end-state map; the window is every segment's
+            # anchor frame and the current frame
+            self._build_end_state()
+            feat_mask = valid_mask(self.map_state)
+            frags = self.fm.fragments
+            up = lambda a: torch.as_tensor(  # noqa: E731
+                np.stack(a).astype(np.float32), device=self.device)
+            kc = torch.cat([up([f.gt_color for f in frags]), color[None]])
+            kd = torch.cat([up([f.gt_depth for f in frags]), depth[None]])
+            kp = up([f.anchor_est for f in frags] + [cur_c2w])
+            pix_per_frame = max(m["pixels"] // 10, 1)
+        else:
+            k = self.mapping_window_size - 2
+            window: List[Optional[int]] = []
+            if len(self.keyframe_list) > 1:
+                cand = self.keyframe_list[:-1]
+                if m["keyframe_selection_method"] == "global":
+                    window = cand[max(0, len(cand) - k):]
+                else:  # 'overlap'
+                    sel = mapper_mod.keyframe_selection_overlap(
+                        self.nprng, depth_np, cur_c2w,
+                        [self.kf_est_c2w[i] for i in cand], k, self.mopts)
+                    window = [cand[s] for s in sel]
+            if self.keyframe_list:
+                window = window + [self.keyframe_list[-1]]
+            self.selected_keyframes[idx] = [
+                {"idx": i, "est_c2w": self.kf_est_c2w[i],
+                 "gt_c2w": self.kf_gt_c2w[i]} for i in window]
+            # pad to the fixed window size, current frame LAST; padding
+            # repeats the window cyclically (equal share per frame)
+            base: List[Optional[int]] = list(window) + [None]
+            n_pad = max(self.mapping_window_size - len(base), 0)
+            pads = [base[i % len(base)] for i in range(n_pad)]
+            window = list(window) + pads + [None]
+            pix_per_frame = max(m["pixels"] // len(window), 1)
+            kc, kd, kp = self._window(window, color, depth, cur_c2w)
 
         # ---------------- iteration schedule ----------------
         num = m["iters_first"] if init else m["iters"]
-        if not init:
+        if color_refine:
+            num = m["iters"] * 2  # x10 over the 5 outer rounds
+        elif not init:
             num = int(np.clip(num * frame_pts_add / 300,
                               int(m["min_iter_ratio"] * num), 2 * num))
         geo_limit = m["geo_iter_first"] if init else int(
@@ -431,24 +711,31 @@ class LoopySLAM:
         lrs_col = [table["color"]["decoders_lr"],
                    table["color"]["geometry_lr"],
                    table["color"]["color_lr"]]
+        dec_mask = self.dec_mask
+        if color_refine:  # the color decoder stays fixed while refining
+            dec_mask = trainable_mask(self.dec, {
+                **cfg, "mapping": {**m, "fix_color_decoder": True}})
 
         # the iteration budget runs in chunks of device_chunk_iters; each
-        # chunk rebuilds the ray pool (and its k-NN), Adam state threads on
+        # chunk rebuilds the ray pool (and its k-NN) and the Adam state
+        # threads on; each outer round of color refinement restarts Adam
+        # (its step count included)
         chunk = int(m.get("device_chunk_iters", 64))
         feat = self.map_state.feat
-        st = None
         aux = None
-        done_geo, done_col = 0, 0
-        while done_geo + done_col < n_geo + n_col:
-            g = min(chunk, n_geo - done_geo)
-            c = min(chunk - g, n_col - done_col)
-            feat, st, aux = mapper_mod.optimize_map(
-                self.dec, feat, st, self.dec_mask, feat_mask,
-                self.map_state.pos, self.map_state.grid, kc, kd, kp,
-                self.draw, g, c, lrs_geo, lrs_col, self.mopts,
-                self.ropts_mapper, pix_per_frame)
-            done_geo += g
-            done_col += c
+        for _ in range(5 if color_refine else 1):
+            st = None
+            done_geo, done_col = 0, 0
+            while done_geo + done_col < n_geo + n_col:
+                g = min(chunk, n_geo - done_geo)
+                c = min(chunk - g, n_col - done_col)
+                feat, st, aux = mapper_mod.optimize_map(
+                    self.dec, feat, st, dec_mask, feat_mask,
+                    self.map_state.pos, self.map_state.grid, kc, kd, kp,
+                    self.draw, g, c, lrs_geo, lrs_col, self.mopts,
+                    self.ropts_mapper, pix_per_frame)
+                done_geo += g
+                done_col += c
         self.map_state = self.map_state._replace(feat=feat)
         if self.verbose and aux is not None:
             g_, c_, n_, drop = torch.stack(
@@ -526,6 +813,14 @@ class LoopySLAM:
                     time.perf_counter() - t_f)
                 t_f = time.perf_counter()
                 color, depth = _upload_frame(color_np, depth_np, self.device)
+                if self.lc_enabled:
+                    self._seg_frames[idx] = (
+                        np.clip(color_np * 255.0, 0, 255).astype(np.uint8),
+                        depth_np)
+                    # bounded even when no boundary ever fires: the oldest
+                    # entries go (a later read reloads them)
+                    while len(self._seg_frames) > 600:
+                        del self._seg_frames[min(self._seg_frames)]
                 self.gt_c2w[idx] = gt_c2w
                 self.timings.setdefault("upload", []).append(
                     time.perf_counter() - t_f)
@@ -542,9 +837,21 @@ class LoopySLAM:
                     if self.verbose:
                         print(f"Mapping Frame {idx}")
                     t0 = time.perf_counter()
-                    self.map_frame(idx, color, depth, gt_c2w, depth_np)
+                    self.map_frame(idx, color, depth, gt_c2w, depth_np,
+                                   color_np)
                     self._sync()
                     self.timings["map"].append(time.perf_counter() - t0)
+                    if (idx == self.n_img - 1
+                            and self.cfg["mapping"]["color_refine"]
+                            and not stop):
+                        if self.verbose:
+                            print("color_refine")
+                        t0 = time.perf_counter()
+                        self.map_frame(idx, color, depth, gt_c2w, depth_np,
+                                       color_np, color_refine=True)
+                        self._sync()
+                        self.timings["color_refine"] = [
+                            time.perf_counter() - t0]
 
                 ckpt_freq = self.cfg["mapping"]["ckpt_freq"]
                 if (self.cfg["mapping"]["save_ckpts"] and idx > 0
@@ -557,7 +864,12 @@ class LoopySLAM:
             prefetch_t.join(timeout=5.0)
         self.finalize(idx)
         if self.verbose:
-            for name in ("track", "map", "data", "upload"):
+            reg, pgo = self.lc.registration_times, self.lc.pgo_times
+            print(f"number of pgos: {len(pgo)}, average time per pgo: "
+                  f"{np.mean(pgo) if pgo else float('nan'):.3f}s")
+            print(f"number of registration rounds: {len(reg)}, average: "
+                  f"{np.mean(reg) if reg else float('nan'):.3f}s")
+            for name in ("track", "map", "color_refine", "data", "upload"):
                 v = self.timings.get(name, [])
                 if v:
                     print(f"{name}: n={len(v)} median "
@@ -614,9 +926,9 @@ class LoopySLAM:
                     (self.cfg["model"]["exposure_dim"],), np.float32),
                 "track_health": self.track_health.cpu().numpy(),
                 "prev_mapped_idx": self.prev_mapped_idx,
-                "fragments": [],
-                "active_sensor_start": 0,
-                "dbow_scores": [],
+                "fragments": self.fm.fragments,
+                "active_sensor_start": self.active_sensor_start,
+                "dbow_scores": list(self.lc.dbow_scores),
                 "rng_key": self.draw.gen.get_state().numpy(),
                 "rng_pool": [],
                 "np_rng_state": self.nprng.bit_generator.state,

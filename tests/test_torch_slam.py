@@ -123,6 +123,10 @@ def _slice_cfg(**over):
     return cfg
 
 
+# ROADMAP.md Queue 1 items the port has: their settings pass check_slice
+PORTED_ITEMS = {10}
+
+
 @pytest.mark.parametrize("over,item", [
     ({"mapping": {"segment_strategy": "rot_trans"}}, 10),
     ({"mapping": {"color_refine": True}}, 10),
@@ -138,10 +142,16 @@ def _slice_cfg(**over):
     ({"wandb": True}, 19),
 ])
 def test_features_outside_the_slice_raise(over, item):
+    """A feature of a ROADMAP item not yet ported raises, naming the item;
+    the settings of ported items (submaps, loop closure and color
+    refinement: item 10) pass."""
     cfg = _slice_cfg(use_dynamic_radius=False,
                      rendering={"sample_near_pcl": False})
     check_slice(cfg, 31)  # the slice's own settings pass
     update_recursive(cfg, over)
+    if item in PORTED_ITEMS:
+        check_slice(cfg, 31)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
         check_slice(cfg, 31)
 

@@ -1,11 +1,13 @@
 """CPU settings shared by the port's heavier parity tests."""
 
+import contextlib
+
 import pytest
 import torch
 
 
-@pytest.fixture
-def torch_cpu():
+@contextlib.contextmanager
+def cpu_settings():
     """Flush subnormal floats, as XLA's CPU backend does (without it the
     backward of softplus100 and the Adam moments fill with subnormals and
     the port's CPU path runs several times slower), and cap torch at two
@@ -14,6 +16,15 @@ def torch_cpu():
     threads = torch.get_num_threads()
     torch.set_flush_denormal(True)
     torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
-    torch.set_flush_denormal(False)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+        torch.set_flush_denormal(False)
+
+
+@pytest.fixture
+def torch_cpu():
+    """cpu_settings() around one test."""
+    with cpu_settings():
+        yield

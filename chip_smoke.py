@@ -18,9 +18,10 @@ Phases:
      --variants, also `variants`: the cold ms of each variant build;
   4. runs the slice-1 path: LoopySLAM on configs/Synthetic/room.yaml's
      values (segment_strategy none, color_refine off, visualizer off) for
-     31 frames, with the kernels' launch counts reset just before, and
-     gates on launches > 0, ATE (aligned) <= 3 mm and no health-gate
-     rejects;
+     16 frames (cut from 31 so that the whole script stays near ten
+     minutes on the card), with the kernels' launch counts reset just
+     before, and gates on launches > 0, ATE (aligned) <= 3 mm and no
+     health-gate rejects;
   5. runs the segmented path: room.yaml as shipped (segment_strategy
      rot_trans, color_refine on, visualizer off) with
      mapping.segment_rel_trans 0.05, tracking.kval 3 and
@@ -33,7 +34,21 @@ Phases:
      launches > 0 and finite poses (a drop in the merged map raises); then
      holds the kernel against its plain version at a fourth shape, the
      color-refine pool over the merged map;
-  6. (only with --profile) a torch.profiler trace of a
+  6. runs the CLI path: `python -m loopy_slam_torch.run` (its `main`) on
+     a YAML overlay of room.yaml as shipped that changes only the frame
+     count (31), the output and both vis_freq (15): first with --stop 15,
+     then with --resume in a fresh session, which runs frames 16-30, color
+     refinement and the final evaluation; prints an `eval:` line (resume
+     frame, map counts at the checkpoint and after restore, visualizer
+     images and time per vis, ATE, rejects, render and reconstruction
+     metrics, the evaluation's step times, launches) and gates on the
+     resume at frame 16 with the checkpoint's count restored, the four
+     visualizer PNGs, ATE <= 3 mm, no rejects, a mesh with faces, psnr >
+     12, accuracy < 15 cm, completion ratio > 20, a finite lpips, no
+     evaluation error and launches > 0; then (6b) holds the kernel against
+     its plain version at the render-chunk shape (4096 rays x N_surface
+     samples) over that path's final map;
+  7. (only with --profile) a torch.profiler trace of a
      6-frame session: device kernel time by kernel, and the device's busy
      share of the wall time (the profiler's own host cost included). The
      profiler's post-processing of ~1.8M kernel events takes about a
@@ -42,7 +57,8 @@ Phases:
 Prints a JSON line of per-kernel numbers, then the card's name and power
 limit, then {"ok": true, "device": {...}} as the last line. Exits non-zero
 (and prints no result) without a CUDA device or if any phase fails.
-Imports nothing of JAX; needs no yaml (the config is built from DEFAULTS).
+Imports nothing of JAX; needs no PyYAML (phases 3-5 build their config
+from DEFAULTS, phase 6 reads YAML with the port's own reader).
 """
 
 from __future__ import annotations
@@ -619,6 +635,196 @@ def refine_pool_check(slam, cfg):
                        cfg["pointcloud"]["radius_query"])
 
 
+CLI_FRAMES = 31
+CLI_STOP = 15
+CLI_VIS_FREQ = 15
+# the JAX package's own gates on its final evaluation of the synthetic room
+# (tests/test_final_eval.py): psnr > 12 dB, accuracy < 15 cm, completion
+# ratio > 20 %
+PSNR_GATE = 12.0
+ACCURACY_GATE_CM = 15.0
+COMPLETION_RATIO_GATE = 20.0
+
+
+def cli_overlay(out: str) -> str:
+    """Write the CLI path's config: room.yaml as shipped, with only the
+    frame count, the output directory and the visualizer frequency
+    changed. Returns its path."""
+    path = os.path.join(out, "room_cli.yaml")
+    room = os.path.join(HERE, "configs", "Synthetic", "room.yaml")
+    with open(path, "w") as f:
+        f.write(f"inherit_from: {json.dumps(room)}\n"
+                f"data: {{n_frames: {CLI_FRAMES}, "
+                f"output: {json.dumps(out)}}}\n"
+                f"tracking: {{vis_freq: {CLI_VIS_FREQ}}}\n"
+                f"mapping: {{vis_freq: {CLI_VIS_FREQ}}}\n")
+    return path
+
+
+def cli_phase():
+    """The CLI path: `python -m loopy_slam_torch.run <overlay> --stop 15`,
+    then `... --resume` in a fresh session (frames 16-30, color
+    refinement, the final evaluation), with the kernel's launch count reset
+    before the first call and read after the second. Returns (summary,
+    overlay path)."""
+    import shutil
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.ops import knn
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    print(f"== phase 6: the CLI path, room.yaml at {CLI_FRAMES} frames, "
+          f"--stop {CLI_STOP} then --resume", flush=True)
+    out = os.path.join(HERE, "output", "chip_smoke_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    overlay = cli_overlay(out)
+    knn.KNN_SELECT_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    first = cli.main([overlay, "--stop", str(CLI_STOP)])
+    t1 = time.perf_counter()
+    ckpt = load_checkpoint(cli.latest_checkpoint(out))
+    second = cli.main([overlay, "--resume"])
+    t2 = time.perf_counter()
+    launches = knn.KNN_SELECT_LAUNCHES.count
+    vis = {d: sorted(f for f in os.listdir(os.path.join(out, d))
+                     if f.endswith(".png"))
+           for d in ("tracking_vis", "mapping_vis")}
+    vis_bytes = {f"{d}/{f}": os.path.getsize(os.path.join(out, d, f))
+                 for d, names in vis.items() for f in names}
+    mesh_path = os.path.join(out, "mesh", "final_mesh.ply")
+    n_faces = 0
+    if os.path.exists(mesh_path):
+        from loopy_slam_torch.utils.io import read_ply_mesh
+        n_faces = len(read_ply_mesh(mesh_path)[1])
+    keys = ("psnr", "ms_ssim", "lpips", "depth_l1", "accuracy", "completion",
+            "completion ratio", "precision", "recall", "fscore", "depth l1")
+    vis_s = (first["timings_s"].get("vis", [])
+             + second["timings_s"].get("vis", []))
+    summary = {
+        "frames": CLI_FRAMES, "stop": CLI_STOP,
+        "checkpoint_idx": int(ckpt["idx"]),
+        "checkpoint_points": int(ckpt["map"]["count"]),
+        "resume": second.get("resume"),
+        "stop_run_s": t1 - t0, "resume_run_s": t2 - t1,
+        "vis_images": vis_bytes, "vis_s": vis_s,
+        "vis_median_s": sorted(vis_s)[len(vis_s) // 2] if vis_s else None,
+        "ate_rmse_m": second["rmse"],
+        "ate_rmse_noalign_m": second["rmse_no_align"],
+        "health_rejects": second["health_rejects"],
+        "segments": second["segments"],
+        "correction_rounds": second["correction_rounds"],
+        "n_points": second["n_points"],
+        "color_refine_s": second["timings_s"].get("color_refine"),
+        **{k: second.get(k) for k in keys},
+        "eval_timings_s": second.get("eval_timings_s"),
+        "eval_error": second.get("eval_error"),
+        "mesh_faces": n_faces,
+        "knn_select_launches": launches,
+    }
+    print("eval:", json.dumps(summary), flush=True)
+    cfg = load_config(overlay)
+    want = {f"{d}/{i:05d}_{cfg[part]['iters'] - 1:04d}.png"
+            for d, part in (("tracking_vis", "tracking"),
+                            ("mapping_vis", "mapping"))
+            for i in (CLI_STOP, 2 * CLI_STOP)}
+    failures = []
+    if summary["eval_error"]:
+        failures.append(f"the final evaluation failed: "
+                        f"{summary['eval_error']}")
+    if (summary["resume"] or {}).get("start_idx") != CLI_STOP + 1:
+        failures.append(f"resumed at {summary['resume']}, not frame "
+                        f"{CLI_STOP + 1}")
+    elif summary["resume"]["points"] != summary["checkpoint_points"]:
+        failures.append("the restored map's count differs from the "
+                        "checkpoint's")
+    if not want <= {k for k, v in vis_bytes.items() if v > 0}:
+        failures.append(f"visualizer images missing: "
+                        f"{sorted(want - set(vis_bytes))}")
+    if not summary["ate_rmse_m"] <= ATE_GATE_M:
+        failures.append(f"ATE {summary['ate_rmse_m']} m > {ATE_GATE_M} m")
+    if summary["health_rejects"]:
+        failures.append(f"{summary['health_rejects']} health-gate rejects")
+    if n_faces <= 0:
+        failures.append("final_mesh.ply has no faces")
+    import math
+
+    def finite(v):
+        return isinstance(v, float) and math.isfinite(v)
+
+    if not (finite(summary["psnr"]) and summary["psnr"] > PSNR_GATE):
+        failures.append(f"psnr {summary['psnr']} not > {PSNR_GATE}")
+    if not (finite(summary["accuracy"])
+            and summary["accuracy"] < ACCURACY_GATE_CM):
+        failures.append(f"accuracy {summary['accuracy']} cm not < "
+                        f"{ACCURACY_GATE_CM}")
+    if not (finite(summary["completion ratio"])
+            and summary["completion ratio"] > COMPLETION_RATIO_GATE):
+        failures.append(f"completion ratio {summary['completion ratio']} "
+                        f"not > {COMPLETION_RATIO_GATE}")
+    if not finite(summary["lpips"]):
+        failures.append(f"lpips {summary['lpips']} not finite")
+    if launches <= 0:
+        failures.append("the CLI path never launched the knn_select kernel")
+    if failures:
+        raise AssertionError("the CLI path: " + "; ".join(failures))
+    return summary, overlay
+
+
+def render_chunk_check(overlay, device):
+    """The kernel against its plain version at the render-chunk shape: one
+    chunk of render_img (4096 rays x N_surface samples, guided by the
+    frame's depth) of frame 2 * CLI_STOP at its estimated pose, over the
+    CLI path's final map, indexed as restore() indexes it."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.mapping.point_cloud import MapOptions
+    from loopy_slam_torch.ops import knn
+    from loopy_slam_torch.ops.camera import get_rays
+    from loopy_slam_torch.ops.sampling import pixels_to_points, surface_z_vals
+    from loopy_slam_torch.utils.datasets import Synthetic
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    print("== phase 6b: knn_select at the render-chunk shape", flush=True)
+    cfg = load_config(overlay)
+    ck = load_checkpoint(cli.latest_checkpoint(cfg["data"]["output"]))
+    mopts = MapOptions.from_cfg(cfg)
+    n = int(ck["map"]["count"])
+    cap = min(int(cfg["pointcloud"].get("initial_capacity", 2 ** 15)),
+              mopts.capacity)
+    while cap < n + 6000:
+        cap *= 2
+    pos = torch.zeros((cap, 3), device=device)
+    pos[:n] = torch.as_tensor(np.asarray(ck["map"]["pos"], np.float32))
+    grid = knn.build_adaptive(pos, torch.arange(cap, device=device) < n,
+                              mopts.cell_size, mopts.table_size,
+                              mopts.max_per_cell)
+    idx = 2 * CLI_STOP
+    _, _, depth_np, _ = Synthetic(cfg)[idx]
+    cam = cfg["cam"]
+    c2w = torch.as_tensor(np.asarray(ck["estimate_c2w_list"][idx],
+                                     np.float32), device=device)
+    ro, rd = get_rays(cam["H"], cam["W"], cam["fx"], cam["fy"], cam["cx"],
+                      cam["cy"], c2w)
+    chunk = 4096
+    i0 = (cam["H"] * cam["W"] // 2) // chunk * chunk  # the middle chunk
+    ro = ro.reshape(-1, 3)[i0:i0 + chunk]
+    rd = rd.reshape(-1, 3)[i0:i0 + chunk]
+    d = torch.as_tensor(depth_np, device=device).reshape(-1)[i0:i0 + chunk]
+    r = cfg["rendering"]
+    z = surface_z_vals(d, d > 0, r["N_surface"], r["near_end_surface"],
+                       r["far_end_surface"], r["near_end"])
+    q = pixels_to_points(ro, rd, z).reshape(-1, 3).contiguous()
+    name = (f"render_chunk Q={q.shape[0]} M={grid.cell_data.shape[1]} "
+            f"T={grid.cell_data.shape[0] - 1}")
+    return check_shape(name, grid, q, cfg["pointcloud"]["nn_num"],
+                       cfg["pointcloud"]["radius_query"])
+
+
 def profile_phase(device, n_frames=6, top=15):
     """Device time by kernel over a short session, and the busy share."""
     import torch
@@ -627,7 +833,7 @@ def profile_phase(device, n_frames=6, top=15):
 
     from loopy_slam_torch.slam import LoopySLAM
 
-    print(f"== phase 6: torch.profiler over a {n_frames}-frame session",
+    print(f"== phase 7: torch.profiler over a {n_frames}-frame session",
           flush=True)
     out = os.path.join(HERE, "output", "chip_smoke_profile")
     cfg = room_config(n_frames, out)
@@ -663,7 +869,7 @@ def profile_phase(device, n_frames=6, top=15):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=31,
+    ap.add_argument("--frames", type=int, default=16,
                     help="frames of the slice-1 path (phase 4)")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler trace of a 6-frame session")
@@ -677,6 +883,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    os.chdir(HERE)  # the configs' inherit_from paths are repo-relative
     from loopy_slam_torch import resolve_device
     from loopy_slam_torch.csrc import build
 
@@ -703,6 +910,9 @@ def main(argv=None) -> int:
     seg_summary, seg_slam = segmented_phase(device)
     shape_results.append(refine_pool_check(seg_slam, seg_slam.cfg))
     del seg_slam
+    torch.cuda.empty_cache()
+    cli_summary, overlay = cli_phase()
+    shape_results.append(render_chunk_check(overlay, device))
     if args.profile:
         profile_phase(device)
 
@@ -714,10 +924,12 @@ def main(argv=None) -> int:
         "replaces": "loopy_slam_tpu/ops/knn.py:231",
         # each path's count, reset just before its run and read just after
         "launches": (summary["knn_select_launches"]
-                     + seg_summary["knn_select_launches"]),
+                     + seg_summary["knn_select_launches"]
+                     + cli_summary["knn_select_launches"]),
         "launches_by_path": {
             "slice1": summary["knn_select_launches"],
-            "segmented": seg_summary["knn_select_launches"]},
+            "segmented": seg_summary["knn_select_launches"],
+            "cli": cli_summary["knn_select_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in shape_results),
         "ms": main_shape["ms"],
         "call_ms": main_shape["call_ms"],

@@ -2,16 +2,17 @@
 
 The port's own copy of the JAX package's config surface: the same
 `DEFAULTS`, the same `inherit_from` chain (scene -> dataset -> base, child
-values recursively override parent dicts). `yaml` is imported inside
-`load_config` only, so the package imports on machines without PyYAML
-(callers there build the config dict from `DEFAULTS` directly).
+values recursively override parent dicts). The YAML files are read by
+`parse_yaml` below, the port's own reader of the subset the repo's configs
+use, on every machine: the card's machine has no PyYAML.
 """
 
 from __future__ import annotations
 
 import copy
 import os
-from typing import Any, Dict, Optional
+import re
+from typing import Any, Dict, List, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Defaults: the full knob surface of the reference base config. Kept equal
@@ -263,15 +264,281 @@ def update_recursive(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
             dst[k] = v
 
 
+class YAMLError(ValueError):
+    """A YAML construct outside the subset parse_yaml reads."""
+
+
+# plain scalars, resolved as YAML 1.1 (PyYAML's safe_load) resolves them;
+# one extension: an exponent without a dot (1e-3) is a float here (YAML
+# 1.2's reading), where PyYAML would return the string "1e-3"
+_NULLS = {"~", "null", "Null", "NULL"}
+_BOOLS = {v: b for b, vs in ((True, "yes Yes YES true True TRUE on On ON"),
+                             (False, "no No NO false False FALSE off Off OFF"))
+          for v in vs.split()}
+_INT = re.compile(r"[-+]?(0|[1-9][0-9]*)$")
+_FLOAT = re.compile(r"[-+]?([0-9]+\.[0-9]*|\.[0-9]+)([eE][-+]?[0-9]+)?$"
+                    r"|[-+]?[0-9]+[eE][-+]?[0-9]+$")
+# other typed forms of YAML 1.1 (octal, hex, 1_000, sexagesimal, dates,
+# .inf): refused rather than read as strings
+_NUMBERISH = re.compile(r"[-+]?\.?[0-9]|[-+]?\.(inf|nan)$|- ", re.I)
+
+
+def _plain(text: str, where: str):
+    if text in _NULLS:
+        return None
+    if text in _BOOLS:
+        return _BOOLS[text]
+    if _INT.match(text):
+        return int(text)
+    if _FLOAT.match(text):
+        return float(text)
+    if _NUMBERISH.match(text) or text[0] in "&*!|>%@`{}[],?" or text == "-":
+        raise YAMLError(f"{where}: unsupported YAML scalar {text!r}")
+    return text
+
+
+def _opens_quote(s: str, i: int) -> bool:
+    """A quote at s[i] starts a quoted scalar (not an apostrophe inside a
+    plain one)."""
+    return s[i] in "'\"" and (i == 0 or s[i - 1] in " [{,:")
+
+
+def _strip_comment(line: str) -> str:
+    """The line without its comment (a '#' at its start or after a blank,
+    outside quotes)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif _opens_quote(line, i):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+class _Flow:
+    """Recursive-descent reader of one flow value: [a, b], {k: v}, quoted
+    or plain scalars, nested."""
+
+    def __init__(self, text: str, where: str):
+        self.s, self.i, self.where = text, 0, where
+
+    def fail(self, msg):
+        raise YAMLError(f"{self.where}: {msg} in {self.s!r}")
+
+    def peek(self):
+        while self.i < len(self.s) and self.s[self.i] == " ":
+            self.i += 1
+        return self.s[self.i] if self.i < len(self.s) else ""
+
+    def expect(self, ch):
+        if self.peek() != ch:
+            self.fail(f"expected {ch!r} at column {self.i + 1}")
+        self.i += 1
+
+    def value(self, in_flow: bool):
+        c = self.peek()
+        if c == "[":
+            return self.seq()
+        if c == "{":
+            return self.mapping()
+        if c in "'\"":
+            return self.quoted()
+        start = self.i
+        while self.i < len(self.s):
+            ch = self.s[self.i]
+            if in_flow and ch in ",]}":
+                break
+            if ch == ":" and (self.i + 1 == len(self.s)
+                              or self.s[self.i + 1] in " ,]}"):
+                break
+            self.i += 1
+        text = self.s[start:self.i].strip()
+        if not text:
+            return None
+        return _plain(text, self.where)
+
+    def quoted(self):
+        q = self.s[self.i]
+        self.i += 1
+        out = []
+        while self.i < len(self.s):
+            ch = self.s[self.i]
+            self.i += 1
+            if ch == q:
+                if q == "'" and self.s[self.i:self.i + 1] == "'":
+                    out.append("'")
+                    self.i += 1
+                    continue
+                return "".join(out)
+            if ch == "\\" and q == '"':
+                esc = self.s[self.i:self.i + 1]
+                self.i += 1
+                if esc not in _ESCAPES:
+                    self.fail(f"unsupported escape \\{esc}")
+                out.append(_ESCAPES[esc])
+                continue
+            out.append(ch)
+        self.fail("unterminated quoted string")
+
+    def seq(self):
+        self.expect("[")
+        out: List[Any] = []
+        if self.peek() == "]":
+            self.i += 1
+            return out
+        while True:
+            out.append(self.value(in_flow=True))
+            c = self.peek()
+            self.i += 1
+            if c == "]":
+                return out
+            if c != ",":
+                self.fail("expected ',' or ']'")
+
+    def mapping(self):
+        self.expect("{")
+        out: Dict[Any, Any] = {}
+        if self.peek() == "}":
+            self.i += 1
+            return out
+        while True:
+            key = self.value(in_flow=True)
+            self.expect(":")
+            out[key] = self.value(in_flow=True)
+            c = self.peek()
+            self.i += 1
+            if c == "}":
+                return out
+            if c != ",":
+                self.fail("expected ',' or '}'")
+
+    def whole(self, in_flow: bool):
+        v = self.value(in_flow)
+        if self.peek():
+            self.fail(f"unexpected text at column {self.i + 1}")
+        return v
+
+
+_ESCAPES = {"\\": "\\", '"': '"', "n": "\n", "t": "\t", "r": "\r",
+            "/": "/", "0": "\0"}
+
+
+def _logical_lines(text: str, path: str) -> List[Tuple[int, int, str]]:
+    """(line number, indent, content) per non-blank line, comments cut, a
+    flow value spread over several lines joined into its first."""
+    out: List[Tuple[int, int, str]] = []
+    pending = None  # [lineno, indent, text, open brackets]
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw)
+        if pending is not None:
+            pending[2] += " " + line.strip()
+        elif not line.strip():
+            continue
+        else:
+            body = line.lstrip(" ")
+            if body.startswith("\t") or "\t" in line[:len(line) - len(body)]:
+                raise YAMLError(f"{path}:{n}: tab in indentation")
+            if body in ("---", "...") or body.startswith(("- ", "%")) \
+                    or body == "-":
+                raise YAMLError(f"{path}:{n}: unsupported YAML line "
+                                f"{body!r} (block sequences, documents and "
+                                "directives are not read)")
+            pending = [n, len(line) - len(body), body]
+        depth, quote = 0, None
+        for i, ch in enumerate(pending[2]):
+            if quote:
+                quote = None if ch == quote else quote
+            elif _opens_quote(pending[2], i):
+                quote = ch
+            elif ch in "[{":
+                depth += 1
+            elif ch in "]}":
+                depth -= 1
+        if depth <= 0:
+            out.append(tuple(pending))
+            pending = None
+    if pending is not None:
+        raise YAMLError(f"{path}:{pending[0]}: unclosed flow collection")
+    return out
+
+
+def _split_key(body: str, where: str) -> Tuple[Any, str]:
+    """'key: value' -> (key, value text); the key plain or quoted."""
+    f = _Flow(body, where)
+    if body[0] in "[{?":
+        raise YAMLError(f"{where}: unsupported mapping key in {body!r}")
+    key = f.quoted() if body[0] in "'\"" else None
+    if key is None:
+        m = re.search(r":( |$)", body)
+        if m is None:
+            raise YAMLError(f"{where}: expected 'key: value', got {body!r}")
+        key = _plain(body[:m.start()].strip(), where)
+        return key, body[m.end():].strip()
+    rest = body[f.i:].lstrip(" ")
+    if not rest.startswith(":"):
+        raise YAMLError(f"{where}: expected ':' after the key in {body!r}")
+    return key, rest[1:].strip()
+
+
+def parse_yaml(text: str, path: str = "<string>") -> Any:
+    """The subset of YAML the repo's configs use: nested block mappings,
+    flow lists and mappings ([a, b], {k: v}, also over several lines),
+    ints, floats (1.5, 1000., 1e-3), bools, null/~, quoted and plain
+    strings, and comments. Anything else (block sequences, anchors, tags,
+    block scalars, several documents, other number forms) raises YAMLError
+    naming the file and the line. Equal to yaml.safe_load on that subset,
+    except that 1e-3 is a float (PyYAML reads a string)."""
+    lines = _logical_lines(text, path)
+    if not lines:
+        return None
+    if lines[0][2][0] in "[{":
+        if len(lines) > 1:
+            raise YAMLError(f"{path}:{lines[1][0]}: text after the document")
+        return _Flow(lines[0][2], f"{path}:{lines[0][0]}").whole(False)
+
+    def block(i: int, indent: int) -> Tuple[Dict[Any, Any], int]:
+        out: Dict[Any, Any] = {}
+        while i < len(lines):
+            n, ind, body = lines[i]
+            where = f"{path}:{n}"
+            if ind < indent:
+                break
+            if ind > indent:
+                raise YAMLError(f"{where}: unexpected indentation")
+            key, rest = _split_key(body, where)
+            i += 1
+            if rest:
+                if rest[0] in "&*!|>":
+                    raise YAMLError(f"{where}: unsupported YAML value "
+                                    f"{rest!r}")
+                out[key] = _Flow(rest, where).whole(in_flow=False)
+            elif i < len(lines) and lines[i][1] > indent:
+                out[key], i = block(i, lines[i][1])
+            else:
+                out[key] = None
+        return out, i
+
+    doc, i = block(0, lines[0][1])
+    if i < len(lines):
+        raise YAMLError(f"{path}:{lines[i][0]}: unexpected indentation")
+    return doc
+
+
+def read_yaml(path: str) -> Any:
+    """parse_yaml of a file."""
+    with open(path, "r") as f:
+        return parse_yaml(f.read(), path)
+
+
 def load_config(path: str, default_path: Optional[str] = None) -> Dict[str, Any]:
     """Load a YAML config, resolving the recursive `inherit_from` chain on
     top of DEFAULTS."""
-    import yaml
-
     cfg = copy.deepcopy(DEFAULTS)
     if default_path is not None and os.path.exists(default_path):
-        with open(default_path, "r") as f:
-            update_recursive(cfg, yaml.safe_load(f) or {})
+        update_recursive(cfg, read_yaml(default_path) or {})
     chain = []
     cur: Optional[str] = path
     seen = set()
@@ -279,8 +546,7 @@ def load_config(path: str, default_path: Optional[str] = None) -> Dict[str, Any]
         if cur in seen:
             raise ValueError(f"inherit_from cycle at {cur}")
         seen.add(cur)
-        with open(cur, "r") as f:
-            node = yaml.safe_load(f) or {}
+        node = read_yaml(cur) or {}
         chain.append(node)
         cur = node.get("inherit_from")
     for node in reversed(chain):

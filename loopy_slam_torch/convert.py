@@ -13,6 +13,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from . import resolve_device
 from .mapping.point_cloud import MapState
 from .models.decoder import Decoders, _tree_of
 from .ops.knn import HashGrid
@@ -26,10 +27,12 @@ def _map_tree(fn, tree):
     return fn(tree)
 
 
-def decoders_from_numpy(tree: Dict[str, Any], device="cpu",
+def decoders_from_numpy(tree: Dict[str, Any], device=None,
                         bf16_trunks: bool = True) -> Decoders:
     """JAX decoder pytree {"geo": ..., "col": ...} of numpy arrays ->
-    Decoders on `device` (float32 copies)."""
+    Decoders on `device` (float32 copies; the card unless the caller asks
+    for the CPU)."""
+    device = resolve_device(device)
     t = _map_tree(lambda a: torch.as_tensor(np.array(a, np.float32),
                                             device=device), tree)
     return Decoders(t, bf16_trunks=bf16_trunks)
@@ -45,11 +48,12 @@ def decoders_to_numpy(dec: Decoders) -> Dict[str, Any]:
 
 def map_state_from_numpy(pos, feat, count, cell_data, cell_fill, cell_size,
                          n_dropped, in_pos=None, in_rgb=None, in_count=0,
-                         device="cpu") -> MapState:
+                         device=None) -> MapState:
     """A JAX map (pos, feat, count and its grid's cell_data, cell_fill,
     cell_size, n_dropped, as numpy) -> the port's MapState on `device`.
-    The input cloud defaults to empty buffers of the point capacity."""
-    dev = torch.device(device)
+    The input cloud defaults to empty buffers of the point capacity.
+    device: the card unless the caller asks for the CPU."""
+    dev = resolve_device(device)
 
     def f32(a):  # a copy: the source arrays may be read-only views
         return torch.tensor(np.asarray(a, np.float32), device=dev)

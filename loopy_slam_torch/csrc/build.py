@@ -1,11 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
-The sources in this directory are compiled at first use with nvcc into a
-shared library with a plain C interface, loaded with ctypes (no PyTorch
-headers, so a build takes seconds). The library lands in
-`loopy_slam_torch/_build/`, named by a hash of the sources, the flags and
-the compiler's version, so a changed source or flag rebuilds and an
-unchanged one loads the existing file. nothing here runs at import time.
+The CUDA sources in this directory are compiled at first use with nvcc
+into a shared library with a plain C interface, loaded with ctypes (no
+PyTorch headers, so a build takes seconds). The host mesh rasterizer
+(`raster_depth.cpp`) is a library of its own, built with g++, so that it
+builds wherever a C++ compiler is, the CPU tests' machine included. Each
+library lands in `loopy_slam_torch/_build/`, named by a hash of its
+sources, its flags and the compiler's version, so a changed source or flag
+rebuilds and an unchanged one loads the existing file. A failed build
+raises. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -29,8 +32,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
+# the host rasterizer: the JAX package's g++ flags for the same source, and
+# no fused multiply-adds on any host
+RASTER_SOURCE = "raster_depth.cpp"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_raster_lib: Optional[ctypes.CDLL] = None
 BUILD_LOG: dict = {}  # last build: {"path", "seconds", "log"} (empty if loaded)
 
 
@@ -48,24 +57,24 @@ def nvcc_path() -> str:
     return path
 
 
-def _library_path(nvcc: str) -> str:
+def _library_path(compiler: str, sources, flags, stem: str) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in sources:
         with open(os.path.join(_HERE, name), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    version = subprocess.run([nvcc, "--version"], capture_output=True,
+    h.update(" ".join(flags).encode())
+    version = subprocess.run([compiler, "--version"], capture_output=True,
                              text=True, check=True).stdout
     h.update(version.encode())
-    return os.path.join(BUILD_DIR, f"loopy_kernels-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build_library() -> str:
-    """Compile the sources if no library for them exists; return its path."""
+def _compile(compiler: str, sources, flags, stem: str, log: dict) -> str:
+    """Compile `sources` into a shared library if none for them exists;
+    return its path."""
     import time
 
-    nvcc = nvcc_path()
-    path = _library_path(nvcc)
+    path = _library_path(compiler, sources, flags, stem)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -74,19 +83,49 @@ def build_library() -> str:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp,
-             *[os.path.join(_HERE, s) for s in SOURCES]],
+            [compiler, *flags, "-o", tmp,
+             *[os.path.join(_HERE, s) for s in sources]],
             capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"{os.path.basename(compiler)} failed "
+                               f"({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, path)  # atomic: concurrent builds agree
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    BUILD_LOG.update(path=path, seconds=time.perf_counter() - t0,
-                     log=proc.stdout + proc.stderr)
+    log.update(path=path, seconds=time.perf_counter() - t0,
+               log=proc.stdout + proc.stderr)
     return path
+
+
+def build_library() -> str:
+    """Compile the CUDA sources if no library for them exists; return its
+    path."""
+    return _compile(nvcc_path(), SOURCES, NVCC_FLAGS, "loopy_kernels",
+                    BUILD_LOG)
+
+
+def load_raster_library() -> ctypes.CDLL:
+    """Build (if needed) and load the host rasterizer, once per process;
+    raises when g++ is missing or the build fails."""
+    global _raster_lib
+    with _lock:
+        if _raster_lib is None:
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise FileNotFoundError(
+                    "g++ not found on PATH; the mesh rasterizer of the "
+                    "reconstruction metrics is built from source at first "
+                    "use")
+            lib = ctypes.CDLL(_compile(gxx, (RASTER_SOURCE,), GXX_FLAGS,
+                                       "loopy_raster", {}))
+            vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+            fn = lib.raster_depth
+            fn.argtypes = [vp, ci, vp, ci, vp, ci, ci, cd, cd, cd, cd, vp]
+            fn.restype = ci
+            _raster_lib = lib
+        return _raster_lib
 
 
 def load_library() -> ctypes.CDLL:

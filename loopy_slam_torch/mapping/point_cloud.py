@@ -16,6 +16,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..ops import knn
 
 
@@ -86,10 +87,11 @@ class MapState(NamedTuple):
 
 
 def init_map(opts: MapOptions, capacity: int = None,
-             device="cpu") -> MapState:
-    """Empty map; capacity overrides opts.capacity for the first
-    allocation (the orchestrator starts small and doubles as it fills)."""
-    dev = torch.device(device)
+             device=None) -> MapState:
+    """Empty map on `device` (the card unless the caller asks for the
+    CPU); capacity overrides opts.capacity for the first allocation (the
+    orchestrator starts small and doubles as it fills)."""
+    dev = resolve_device(device)
     cap, c = capacity or opts.capacity, opts.c_dim
     pos = torch.zeros((cap, 3), device=dev)
     valid = torch.zeros((cap,), dtype=torch.bool, device=dev)

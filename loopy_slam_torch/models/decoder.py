@@ -28,6 +28,8 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from .. import resolve_device
+
 GEO_HIDDEN = 32
 COL_HIDDEN = 128
 N_BLOCKS = 5
@@ -108,11 +110,12 @@ def _mm(x, w, bf16: bool):
 
 
 def init_decoders(gen: torch.Generator, cfg: Dict[str, Any],
-                  device="cpu") -> Decoders:
+                  device=None) -> Decoders:
     """Randomly initialized decoders with the reference's shapes and init
     distributions (xavier-uniform trunks, torch-Linear fc_c, N(0, s^2)
-    embedders), drawn from `gen` (a generator on `device`)."""
-    dev = torch.device(device)
+    embedders), drawn from `gen` (a generator on `device`: the card unless
+    the caller asks for the CPU)."""
+    dev = resolve_device(device)
 
     def uni(shape, bound):
         return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound

@@ -15,6 +15,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 class TorchDraws:
     """Draws from one seeded `torch.Generator` on `device`."""
@@ -40,9 +42,10 @@ class ReplayDraws:
     (and for randint its range), so a test can feed the port the draws
     another implementation made."""
 
-    def __init__(self, arrays: Sequence[np.ndarray], device="cpu"):
+    def __init__(self, arrays: Sequence[np.ndarray], device=None):
+        """device: the card unless the caller asks for the CPU."""
         self.items = list(arrays)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def _next(self, shape):
         if not self.items:

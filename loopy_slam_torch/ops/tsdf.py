@@ -191,12 +191,17 @@ def _weld(tris, colg, origin, voxel):
     """Weld a (T, 3, 3) voxel-coordinate triangle soup into an indexed mesh
     with vertex colors (duplicates merged on 1e-4-voxel keys)."""
     flat = tris.reshape(-1, 3)
-    # the three 1e-4-voxel keys (>= 0, < 2^21 on grids up to 209 voxels)
-    # packed into one int64, so the unique vertices come in the
-    # lexicographic order of np.unique(axis=0)
+    # the three 1e-4-voxel keys (>= 0), packed into one int64 when they fit
+    # (grids up to 209 voxels a side at 21 bits each), so the unique
+    # vertices come in the lexicographic order of np.unique(axis=0); a
+    # larger grid takes the same order from unique over rows
     k = torch.round(flat / 1e-4).long()
-    key = (k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2]
-    uniq, inv = torch.unique(key, return_inverse=True)
+    bits = max(int(k.max()).bit_length(), 1)
+    if 3 * bits <= 63:
+        key = (k[:, 0] << (2 * bits)) | (k[:, 1] << bits) | k[:, 2]
+        uniq, inv = torch.unique(key, return_inverse=True)
+    else:
+        uniq, inv = torch.unique(k, dim=0, return_inverse=True)
     n = uniq.shape[0]
     verts_vox = torch.zeros((n, 3), dtype=torch.float64,
                             device=flat.device).index_add_(0, inv, flat)

@@ -19,6 +19,12 @@ moves segments, trajectory and the device map rigidly. With
 mapping.color_refine, the last frame is mapped again over the merged
 global map of all segments, with the segment anchors as the window.
 
+After the run: `render_img` renders full frames through the map,
+`final_eval` scores renders and a fused mesh, and `restore` continues a
+run from a checkpoint written by `finalize` (by either package). With
+tracking.vis_freq / mapping.vis_freq, residual panels are written during
+the run (utils/visualizer.py).
+
 A config that asks for a feature outside the port raises
 NotImplementedError naming its ROADMAP.md item instead of silently running
 something else.
@@ -41,13 +47,19 @@ from .mapping.fragments import FragmentManager
 from .mapping.loop_closure import LoopCloser, LoopClosureConfig
 from .mapping.point_cloud import MapOptions, MapState, init_map, valid_mask
 from .models.decoder import init_decoders, trainable_mask
-from .models.renderer import RenderOptions
+from .models.renderer import RenderOptions, render_batch_ray
 from .ops import knn, tsdf
 from .ops.orb import extract_orb
-from .ops.camera import tensor_from_c2w
+from .ops.camera import get_rays, tensor_from_c2w
 from .ops.draws import TorchDraws
+from .tools.cull_mesh import cull_mesh
+from .tools.eval_images import evaluate_renders
+from .tools.eval_recon import calc_2d_metric, calc_3d_metric
+from .tools.get_mesh_tsdf_fusion import mesh_from_renders
 from .utils.datasets import get_dataset
-from .utils.io import save_checkpoint, write_ply_points
+from .utils.io import (load_checkpoint, save_checkpoint, write_ply_mesh,
+                       write_ply_points)
+from .utils.visualizer import Visualizer
 
 
 def update_cam(cfg) -> Dict[str, float]:
@@ -71,32 +83,20 @@ def update_cam(cfg) -> Dict[str, float]:
     return cam
 
 
-def _vis_fires(freq, frames) -> bool:
-    return bool(freq) and freq > 0 and any(
-        i > 0 and i % freq == 0 for i in frames)
-
-
-def check_slice(cfg, n_frames: int) -> None:
+def check_slice(cfg) -> None:
     """Raise NotImplementedError for any configured feature the port does
     not have yet, naming its ROADMAP.md item. Submaps, loop closure and
-    color refinement (item 10) are in."""
+    color refinement (item 10) and the visualizer (item 14) are in."""
     m, t = cfg["mapping"], cfg["tracking"]
     seg = m["segment_strategy"]
     if seg not in ("rot_trans", "fixed", "none"):
         raise ValueError(f"mapping.segment_strategy={seg!r} is not one of "
                          "'rot_trans', 'fixed' or 'none'")
-    every = m["every_frame"]
-    mapped = [i for i in range(n_frames)
-              if i % every == 0 or i == n_frames - 1]
     par = cfg.get("parallel", {})
     missing = [
         (t["visual_odometer"], "tracking.visual_odometer", 11),
         (int(par.get("n_devices", 0)) > 1 or par.get("map_shard", False),
          "parallel.* (multi-device)", 13),
-        (_vis_fires(t.get("vis_freq", 0), range(n_frames)),
-         "tracking.vis_freq > 0 firing within n_frames (visualizer)", 14),
-        (_vis_fires(m.get("vis_freq", 0), mapped),
-         "mapping.vis_freq > 0 firing within n_frames (visualizer)", 14),
         (cfg["use_dynamic_radius"], "use_dynamic_radius", 15),
         (t["sample_with_color_grad"], "tracking.sample_with_color_grad", 15),
         (m["pixels_based_on_color_grad"] > 0,
@@ -146,7 +146,7 @@ class LoopySLAM:
 
         self.dataset = get_dataset(cfg)
         self.n_img = len(self.dataset)
-        check_slice(cfg, self.n_img)
+        check_slice(cfg)
 
         os.makedirs(os.path.join(self.output, "ckpts"), exist_ok=True)
         self._take_run_lock()
@@ -229,6 +229,20 @@ class LoopySLAM:
         # and the seconds of each closed-segment frame's ORB
         self.seg_timings: Dict[str, List[float]] = {
             "tsdf_fuse": [], "extract_mesh": [], "orb_frame": []}
+
+        # render-vs-input residual panels, rendered after the optimizer of
+        # frames with idx > 0 and idx % vis_freq == 0
+        self.tracking_vis = self.mapping_vis = None
+        tv = int(cfg["tracking"].get("vis_freq", 0) or 0)
+        if tv > 0:
+            self.tracking_vis = Visualizer(
+                tv, os.path.join(self.output, "tracking_vis"), self,
+                verbose=self.verbose)
+        mv = int(cfg["mapping"].get("vis_freq", 0) or 0)
+        if mv > 0:
+            self.mapping_vis = Visualizer(
+                mv, os.path.join(self.output, "mapping_vis"), self,
+                verbose=self.verbose)
 
     # ------------------------------------------------------------------
     def _take_run_lock(self):
@@ -758,10 +772,209 @@ class LoopySLAM:
         self.prev_mapped_idx = idx
 
     # ------------------------------------------------------------------
-    def run(self, stop: Optional[int] = None):
-        """Track and map every frame. Returns {"estimate_c2w", "gt_c2w",
-        "n_points"}; per-phase wall times are in self.timings."""
+    # Full-frame rendering (evaluation and visualization)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def render_img(self, c2w, gt_depth, chunk: int = 4096):
+        """Full-frame render at pose c2w (4x4), in the color stage, guided
+        by gt_depth (H, W) as the mapper's samples are. Returns numpy
+        (depth (H, W), color (H, W, 3)).
+
+        The frame goes through the renderer in chunks of `chunk` rays, each
+        one k-NN launch over chunk * N_surface samples; the last chunk is
+        padded to the full size (zero depth, so its rays are invalid), as
+        the JAX package pads it. 4096, the JAX package's chunk, keeps the
+        noise draws of each chunk the same shape as JAX's, so a render with
+        JAX's draws replayed matches JAX's render."""
+        dev = self.device
+        rays_o, rays_d = get_rays(self.H, self.W, self.fx, self.fy, self.cx,
+                                  self.cy, torch.as_tensor(
+                                      np.asarray(c2w, np.float32), device=dev))
+        rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+        gd = torch.as_tensor(np.asarray(gt_depth, np.float32),
+                             device=dev).reshape(-1)
+        n = rays_o.shape[0]
+        s = self.map_state
+        depths, colors = [], []
+        for i in range(0, n, chunk):
+            sl = slice(i, i + chunk)
+            ro, rd, d = rays_o[sl], rays_d[sl], gd[sl]
+            take = ro.shape[0]
+            pad = chunk - take
+            if pad:
+                ro = torch.cat([ro, torch.zeros((pad, 3), device=dev)])
+                rd = torch.cat([rd, torch.ones((pad, 3), device=dev)])
+                d = torch.cat([d, torch.zeros((pad,), device=dev)])
+            dep, _, col, _ = render_batch_ray(
+                self.dec, s.pos, s.grid, s.feat, ro, rd, d, d > 0, self.draw,
+                self.ropts_mapper, "color")
+            depths.append(dep[:take])
+            colors.append(col[:take])
+        depth = torch.cat(depths).reshape(self.H, self.W)
+        color = torch.cat(colors).reshape(self.H, self.W, 3)
+        return depth.cpu().numpy(), color.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def restore(self, ckpt_path: str) -> int:
+        """Restore a live session from a checkpoint written by finalize(),
+        of this package or of the JAX package (the same keys). Returns the
+        frame to resume from (the checkpoint's idx + 1).
+
+        The map is rebuilt at the capacity the growth policy gives its
+        count (no clamp at pointcloud.capacity: a checkpoint written after
+        the global merge can hold more) and re-indexed by build_adaptive;
+        the keyframe ring is re-read from the dataset in its slot order;
+        the submaps are replayed into the place-recognition database in
+        order. The random streams continue where the checkpoint left them:
+        the torch generator state (the port writes it as `rng_key`) and the
+        numpy generator state. A JAX checkpoint's `rng_key` is a JAX key,
+        which no torch generator can continue: the session then keeps its
+        own generator, seeded from setup_seed. The exposure fields (ROADMAP
+        item 16) must be empty or zero."""
+        ckpt = load_checkpoint(ckpt_path)
+        last_idx = int(ckpt["idx"])
+        dev = self.device
+        r = ckpt["resume"]
+        for name in ("kf_exposure", "mapped_exposure"):
+            if any(np.any(np.asarray(v)) for v in r.get(name, {}).values()):
+                raise NotImplementedError(
+                    f"checkpoint {ckpt_path} carries exposure latents "
+                    f"({name}); model.encode_exposure is not ported yet "
+                    "(ROADMAP.md Queue 1 item 16)")
+        if np.any(np.asarray(r.get("exposure_feat", 0.0))):
+            raise NotImplementedError(
+                f"checkpoint {ckpt_path} carries an exposure latent; "
+                "model.encode_exposure is not ported yet (ROADMAP.md Queue "
+                "1 item 16)")
+        self.dec = decoders_from_numpy(
+            ckpt["params"], dev, self.cfg["model"].get("bf16_trunks", True))
+        self.dec_mask = trainable_mask(self.dec, self.cfg)
+
+        # ---- map buffers and index
+        m = ckpt["map"]
+        count = int(m["count"])
+        c = self.mopts_map.c_dim
+        cap = min(self.initial_capacity, self.mopts_map.capacity)
+        while cap < count + 6000:
+            cap *= 2
+        pos = torch.zeros((cap, 3), device=dev)
+        feat = torch.zeros((cap, 2 * c), device=dev)
+        if count:
+            pos[:count] = torch.as_tensor(np.asarray(m["pos"], np.float32))
+            feat[:count, :c] = torch.as_tensor(np.asarray(m["geo"],
+                                                          np.float32))
+            feat[:count, c:] = torch.as_tensor(np.asarray(m["col"],
+                                                          np.float32))
+        grid = knn.build_adaptive(pos, torch.arange(cap, device=dev) < count,
+                                  self.mopts_map.cell_size,
+                                  self.mopts_map.table_size,
+                                  self.mopts_map.max_per_cell)
+        in_cap = self.map_state.in_pos.shape[0]
+        n_in = int(r["in_count"])
+        if n_in > in_cap:
+            raise ValueError(
+                f"checkpoint holds {n_in} input-cloud points but this "
+                f"session's input capacity is {in_cap}; resuming would drop "
+                "sensor points from the exported cloud: rerun with the "
+                "original pointcloud capacity settings")
+        in_pos = torch.zeros_like(self.map_state.in_pos)
+        in_rgb = torch.zeros_like(self.map_state.in_rgb)
+        if n_in:
+            in_pos[:n_in] = torch.as_tensor(
+                np.asarray(r["in_pos"][:n_in], np.float32))
+            in_rgb[:n_in] = torch.as_tensor(
+                np.asarray(r["in_rgb"][:n_in], np.float32))
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.map_state = MapState(
+            pos=pos, feat=feat, count=torch.tensor(count, **i32), grid=grid,
+            in_pos=in_pos, in_rgb=in_rgb, in_count=torch.tensor(n_in, **i32))
+        self._count_host = count
+
+        # ---- trajectories and keyframe metadata
+        n = min(last_idx + 1, self.n_img)
+        self.estimate_c2w[:n] = np.asarray(ckpt["estimate_c2w_list"])[:n]
+        self.gt_c2w[:n] = np.asarray(ckpt["gt_c2w_list"])[:n]
+        self.keyframe_global_list = list(ckpt["keyframe_list"])
+        self.keyframe_list = list(r["keyframe_local_list"])
+        self.kf_est_c2w = dict(ckpt["keyframe_est_c2w"])
+        self.kf_gt_c2w = dict(r["kf_gt_c2w"])
+        self.selected_keyframes = dict(ckpt["selected_keyframes"])
+        th = np.asarray(r["track_health"], np.float32)
+        if th.shape[0] == 2:  # checkpoints before the streak counter
+            th = np.concatenate([th, np.zeros((1,), np.float32)])
+        self.track_health = torch.as_tensor(th, device=dev)
+        self._last_rejects = float(th[1])
+        self.prev_mapped_idx = r["prev_mapped_idx"]
+
+        # ---- keyframe pixel ring, re-read in the original slot order;
+        # an inconsistent checkpoint fails (a dropped entry would shift
+        # every later slot against the restored state)
+        kf_order = list(r["kf_order"])
+        missing = [i for i in kf_order if i not in self.kf_est_c2w]
+        if missing:
+            raise ValueError(
+                f"checkpoint keyframes {missing} have no saved pose")
+        if len(kf_order) > self.kf_color.shape[0]:
+            raise ValueError(
+                f"checkpoint holds {len(kf_order)} keyframes but this "
+                f"session's ring fits {self.kf_color.shape[0]}; rerun with "
+                "the original keyframe_every/--stop settings")
+        self.kf_slots_used = 0
+        self.kf_slot_of_idx = {}
+        for kf_idx in kf_order:
+            _, color_np, depth_np, _ = self.dataset[kf_idx]
+            color, depth = _upload_frame(color_np, depth_np, dev)
+            self._add_keyframe(kf_idx, color, depth, self.kf_est_c2w[kf_idx],
+                               self.kf_gt_c2w.get(kf_idx,
+                                                  self.kf_est_c2w[kf_idx]))
+
+        # ---- submaps: the place-recognition database replayed in fragment
+        # order (query ids index fragments), the score baselines restored
+        self.fm.fragments = list(r["fragments"])
+        self.active_sensor_start = int(r["active_sensor_start"])
+        for f in self.fm.fragments:
+            self.lc.on_new_segment(f.anchor_des)
+        self.lc.dbow_scores = list(r.get("dbow_scores", []))
+
+        # ---- random streams
+        key = np.asarray(r.get("rng_key", np.zeros(0)))
+        state = self.draw.gen.get_state()
+        if key.dtype == np.uint8 and key.shape == tuple(state.shape):
+            self.draw.gen.set_state(torch.as_tensor(key))
+        if "np_rng_state" in r:
+            self.nprng.bit_generator.state = r["np_rng_state"]
+
+        if self.verbose:
+            print(f"resumed from {ckpt_path}: frame {last_idx}, {count} "
+                  f"points, {len(self.fm.fragments)} segments, "
+                  f"{self.kf_slots_used} keyframes")
+        return last_idx + 1
+
+    # ------------------------------------------------------------------
+    def _vis(self, which: str, idx, iters, depth_np, color_np):
+        """Residual panels of frame idx at its estimated pose, timed."""
+        vis = getattr(self, f"{which}_vis")
+        if vis is None:
+            return
+        t0 = time.perf_counter()
+        if vis.vis(idx, iters - 1, depth_np, color_np,
+                   self.estimate_c2w[idx]) is not None:
+            self.timings.setdefault("vis", []).append(
+                time.perf_counter() - t0)
+
+    # ------------------------------------------------------------------
+    def run(self, stop: Optional[int] = None, start_idx: int = 0):
+        """Track and map frames start_idx.. (0, or restore()'s return).
+        Returns {"estimate_c2w", "gt_c2w", "n_points"}; per-phase wall
+        times are in self.timings."""
         stop = stop or self.cfg.get("stop") or 0
+        if start_idx >= self.n_img:  # a checkpoint of a finished run
+            if self.verbose:
+                print(f"nothing to do: the checkpoint covers all "
+                      f"{self.n_img} frames")
+            return {"estimate_c2w": self.estimate_c2w,
+                    "gt_c2w": self.gt_c2w,
+                    "n_points": int(self.map_state.count)}
         import queue as _queue
         import threading as _threading
 
@@ -771,7 +984,7 @@ class LoopySLAM:
         stop_evt = _threading.Event()
 
         def _producer():
-            for i in range(self.n_img):
+            for i in range(start_idx, self.n_img):
                 try:
                     item = self.dataset[i]
                 except Exception as e:  # noqa: BLE001 - re-raised below
@@ -804,9 +1017,9 @@ class LoopySLAM:
                 raise RuntimeError(f"prefetch out of order: {pf_idx} != {idx}")
             return item
 
-        idx = 0
+        idx = start_idx
         try:
-            for idx in range(self.n_img):
+            for idx in range(start_idx, self.n_img):
                 t_f = time.perf_counter()
                 _, color_np, depth_np, gt_c2w = _next_frame(idx)
                 self.timings.setdefault("data", []).append(
@@ -832,6 +1045,8 @@ class LoopySLAM:
                     self.estimate_c2w[idx] = self.track_frame(idx, color,
                                                               depth)
                     self.timings["track"].append(time.perf_counter() - t0)
+                    self._vis("tracking", idx, self.topts.iters, depth_np,
+                              color_np)
 
                 if idx % self.every_frame == 0 or idx == self.n_img - 1:
                     if self.verbose:
@@ -841,6 +1056,8 @@ class LoopySLAM:
                                    color_np)
                     self._sync()
                     self.timings["map"].append(time.perf_counter() - t0)
+                    self._vis("mapping", idx, self.cfg["mapping"]["iters"],
+                              depth_np, color_np)
                     if (idx == self.n_img - 1
                             and self.cfg["mapping"]["color_refine"]
                             and not stop):
@@ -869,7 +1086,8 @@ class LoopySLAM:
                   f"{np.mean(pgo) if pgo else float('nan'):.3f}s")
             print(f"number of registration rounds: {len(reg)}, average: "
                   f"{np.mean(reg) if reg else float('nan'):.3f}s")
-            for name in ("track", "map", "color_refine", "data", "upload"):
+            for name in ("track", "map", "color_refine", "data", "upload",
+                         "vis"):
                 v = self.timings.get(name, [])
                 if v:
                     print(f"{name}: n={len(v)} median "
@@ -882,6 +1100,89 @@ class LoopySLAM:
             "gt_c2w": self.gt_c2w[:idx + 1],
             "n_points": int(self.map_state.count),
         }
+
+    # ------------------------------------------------------------------
+    def final_eval(self, every: Optional[int] = None, save_renders=True,
+                   gt_mesh=None, n_2d_views=100) -> Dict:
+        """End-of-run evaluation: render every `every`-th frame at its
+        estimated pose (renders saved under rendered_every_frame/ are
+        reused) -> PSNR, MS-SSIM, LPIPS, depth L1; with meshing.eval_rec,
+        TSDF-fuse the renders into mesh/final_mesh.ply and, against the
+        ground-truth mesh (the dataset's analytic one unless given) culled
+        to the frustums of the evaluated frames, accuracy, completion,
+        completion ratio, precision, recall, F-score and the 2-D depth L1
+        over n_2d_views virtual views. Wall times of each step are in
+        self.eval_timings."""
+        every = every or self.every_frame
+        rdir = os.path.join(self.output, "rendered_every_frame")
+        os.makedirs(rdir, exist_ok=True)
+        pairs, renders, poses = [], [], []
+        n_reused = 0
+        self.eval_timings: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        for idx in range(0, self.n_img, every):
+            _, gc, gd, _ = self.dataset[idx]
+            cpath = os.path.join(rdir, f"color_{idx:05d}.npy")
+            dpath = os.path.join(rdir, f"depth_{idx:05d}.npy")
+            if save_renders and os.path.exists(cpath) \
+                    and os.path.exists(dpath):
+                # an earlier final_eval over the same map wrote them
+                color, depth = np.load(cpath), np.load(dpath)
+                n_reused += 1
+            else:
+                depth, color = self.render_img(self.estimate_c2w[idx], gd)
+                if save_renders:
+                    np.save(cpath, color)
+                    np.save(dpath, depth)
+            pairs.append((color, gc, depth, gd))
+            renders.append((color.astype(np.float32),
+                            depth.astype(np.float32)))
+            poses.append(self.estimate_c2w[idx])
+        t1 = time.perf_counter()
+        self.eval_timings.update(render_s=t1 - t0, frames=len(pairs),
+                                 reused=n_reused)
+        if self.verbose and n_reused:
+            print(f"final_eval: reused {n_reused} saved renders from {rdir}")
+        render_stats = evaluate_renders(
+            pairs, lpips_weights=self.cfg["rendering"].get("lpips_weights"),
+            device=self.device)
+        self.eval_timings["image_metrics_s"] = time.perf_counter() - t1
+        if self.verbose:
+            print("render metrics:", render_stats)
+
+        recon_stats = {}
+        if self.cfg["meshing"]["eval_rec"]:
+            t0 = time.perf_counter()
+            cam = {"fx": self.fx, "fy": self.fy, "cx": self.cx,
+                   "cy": self.cy, "H": self.H, "W": self.W}
+            verts, faces, colors = mesh_from_renders(
+                renders, poses, cam,
+                voxel=self.cfg["meshing"].get("mesh_voxel", 0.02),
+                device=self.device)
+            os.makedirs(os.path.join(self.output, "mesh"), exist_ok=True)
+            write_ply_mesh(os.path.join(self.output, "mesh",
+                                        "final_mesh.ply"),
+                           verts, faces, colors)
+            self.eval_timings["mesh_s"] = time.perf_counter() - t0
+            if gt_mesh is None and hasattr(self.dataset, "gt_mesh"):
+                gt_mesh = self.dataset.gt_mesh()
+            if gt_mesh is not None and len(faces):
+                # against the ground-truth surface the trajectory observed
+                gv, gf, _, unseen = cull_mesh(
+                    gt_mesh[0], gt_mesh[1],
+                    [self.gt_c2w[i] for i in range(0, self.n_img, every)],
+                    cam, return_unseen=True)
+                t0 = time.perf_counter()
+                recon_stats = calc_3d_metric((verts, faces), (gv, gf))
+                t1 = time.perf_counter()
+                recon_stats.update(calc_2d_metric(
+                    (verts, faces), (gv, gf), n_views=n_2d_views,
+                    pc_unseen=unseen))
+                self.eval_timings.update(
+                    metric_3d_s=t1 - t0, metric_2d_s=time.perf_counter() - t1)
+                if self.verbose:
+                    print("reconstruction metrics:", recon_stats)
+        return {**render_stats, **recon_stats}
 
     # ------------------------------------------------------------------
     def finalize(self, last_idx, final: bool = True):

@@ -1,8 +1,10 @@
-"""ATE RMSE evaluation, aligned (Horn) and un-aligned (port of the
-checkpoint mode of loopy_slam_tpu/tools/eval_ate.py; the TUM-file mode
-waits for the evaluation slice, ROADMAP.md Queue 1 item 12).
+"""ATE RMSE evaluation, aligned (Horn) and un-aligned (port of
+loopy_slam_tpu/tools/eval_ate.py: the checkpoint mode and the TUM-file
+mode; the `--plot` figure, which needs matplotlib, is not ported).
 
 CLI:  python -m loopy_slam_torch.tools.eval_ate --output DIR [--no_align]
+      python -m loopy_slam_torch.tools.eval_ate --est_traj F --gt_traj F
+          [--offset S] [--max_difference S] [--scale X] [--no_align]
 """
 
 from __future__ import annotations
@@ -51,6 +53,101 @@ def evaluate_trajectories(est: np.ndarray, gt: np.ndarray,
     }
 
 
+def read_tum_trajectory(path: str) -> Dict[float, np.ndarray]:
+    """Read a TUM/freiburg-format text trajectory: one pose per line,
+    `timestamp tx ty tz qx qy qz qw`, '#' comments ignored (the format of
+    the TUM groundtruth.txt files and most SLAM tool outputs; reference
+    eval_ate.py:268-283 consumes the same). Returns {stamp: (7,) f64}."""
+    out: Dict[float, np.ndarray] = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals = [float(v) for v in line.replace(",", " ").split()]
+            if len(vals) < 8:
+                raise ValueError(
+                    f"{path}: expected 'stamp tx ty tz qx qy qz qw', "
+                    f"got {len(vals)} fields: {line!r}")
+            out[vals[0]] = np.asarray(vals[1:8], np.float64)
+    return out
+
+
+def associate(first: Dict[float, np.ndarray],
+              second: Dict[float, np.ndarray],
+              offset: float = 0.0, max_difference: float = 0.02):
+    """Greedy closest-stamp matching between two {stamp: data} dicts —
+    the TUM benchmark's association contract (reference
+    eval_ate.py:12-44): every candidate pair within max_difference is
+    ranked by |Δt| and consumed greedily, each stamp used at most once.
+    Returns sorted [(stamp1, stamp2)].
+
+    Candidates come from a sorted-window sweep instead of the
+    reference's full N x M cross product: a real freiburg
+    groundtruth.txt logs at ~100 Hz (tens of thousands of stamps), and
+    the cross product would materialize 10^8+ Python tuples. Within the
+    window the candidate SET (and therefore the greedy result) is
+    identical."""
+    a_keys = np.asarray(sorted(first), np.float64)
+    b_keys = np.asarray(sorted(second), np.float64)
+    shifted = b_keys + offset
+    lo = np.searchsorted(shifted, a_keys - max_difference, side="left")
+    hi = np.searchsorted(shifted, a_keys + max_difference, side="right")
+    cands = []
+    for i, a in enumerate(a_keys):
+        for j in range(lo[i], hi[i]):
+            d = abs(a - shifted[j])
+            if d < max_difference:
+                cands.append((d, float(a), float(b_keys[j])))
+    cands.sort()
+    used1, used2, matches = set(), set(), []
+    for _, a, b in cands:
+        if a not in used1 and b not in used2:
+            used1.add(a)
+            used2.add(b)
+            matches.append((a, b))
+    matches.sort()
+    return matches
+
+
+def _tum_to_c2w(vec7: np.ndarray) -> np.ndarray:
+    """tx ty tz qx qy qz qw -> 4x4 (translation is all ATE uses, but the
+    full matrix keeps the function generally useful)."""
+    t = vec7[:3]
+    x, y, z, w = vec7[3:7]
+    n = x * x + y * y + z * z + w * w
+    s = 0.0 if n == 0 else 2.0 / n
+    R = np.array([
+        [1 - s * (y * y + z * z), s * (x * y - z * w), s * (x * z + y * w)],
+        [s * (x * y + z * w), 1 - s * (x * x + z * z), s * (y * z - x * w)],
+        [s * (x * z - y * w), s * (y * z + x * w), 1 - s * (x * x + y * y)],
+    ])
+    c2w = np.eye(4)
+    c2w[:3, :3] = R
+    c2w[:3, 3] = t
+    return c2w
+
+
+def evaluate_tum_files(est_path: str, gt_path: str, offset: float = 0.0,
+                       max_difference: float = 0.02,
+                       scale: float = 1.0) -> Dict[str, float]:
+    """ATE between two timestamped freiburg-format trajectory files —
+    the reference tool's standalone mode (eval_ate.py:235-266), so
+    external trajectories (other SLAM systems, sensor logs) can be
+    scored without a checkpoint."""
+    est = read_tum_trajectory(est_path)
+    gt = read_tum_trajectory(gt_path)
+    matches = associate(est, gt, offset, max_difference)
+    if len(matches) < 2:
+        raise ValueError(
+            "couldn't associate the trajectories — check --offset / "
+            "--max_difference")
+    est_c2w = np.stack([_tum_to_c2w(np.concatenate(
+        [est[a][:3] * scale, est[a][3:]])) for a, _ in matches])
+    gt_c2w = np.stack([_tum_to_c2w(gt[b]) for _, b in matches])
+    return evaluate_trajectories(est_c2w, gt_c2w)
+
+
 def evaluate_from_output(output_dir: str) -> Dict[str, float]:
     """ATE of the latest checkpoint under <output_dir>/ckpts."""
     from ..utils.io import load_checkpoint
@@ -64,14 +161,34 @@ def evaluate_from_output(output_dir: str) -> Dict[str, float]:
                                  ck["gt_c2w_list"][:n])
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--output", required=True, help="run output dir")
+    ap.add_argument("--output", default=None,
+                    help="run output dir (checkpoint mode)")
+    ap.add_argument("--est_traj", default=None,
+                    help="freiburg-format estimated trajectory file "
+                         "(standalone mode; requires --gt_traj)")
+    ap.add_argument("--gt_traj", default=None,
+                    help="freiburg-format ground-truth trajectory file")
+    ap.add_argument("--offset", type=float, default=0.0)
+    ap.add_argument("--max_difference", type=float, default=0.02)
+    ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--no_align", action="store_true")
-    args = ap.parse_args()
-    stats = evaluate_from_output(args.output)
+    args = ap.parse_args(argv)
+    if args.est_traj or args.gt_traj:
+        if not (args.est_traj and args.gt_traj):
+            ap.error("--est_traj and --gt_traj go together")
+        stats = evaluate_tum_files(args.est_traj, args.gt_traj,
+                                   args.offset, args.max_difference,
+                                   args.scale)
+    elif args.output:
+        stats = evaluate_from_output(args.output)
+    else:
+        ap.error("pass --output DIR or --est_traj/--gt_traj files")
     key = "rmse_no_align" if args.no_align else "rmse"
-    print({"absolute_translational_error.rmse": stats[key], **stats})
+    out = {"absolute_translational_error.rmse": stats[key], **stats}
+    print(out)
+    return out
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@ procedural `Synthetic` room (numpy only), copied from
 loopy_slam_tpu/utils/datasets.py.
 
 `__getitem__` -> (index, color float HxWx3 in [0,1] RGB, depth float HxW in
-meters, gt c2w 4x4 float32), numpy arrays. The file-based formats
-(Replica, ScanNet, TUM-RGBD, Azure, CoFusion) and their cv2 decoding are
-not ported yet (ROADMAP.md Queue 1 item 11): `get_dataset` raises for them.
+meters, gt c2w 4x4 float32), numpy arrays; `Synthetic.gt_mesh` is the
+room's analytic ground-truth mesh for the reconstruction metrics. The
+file-based formats (Replica, ScanNet, TUM-RGBD, Azure, CoFusion) and their
+cv2 decoding are not ported yet (ROADMAP.md Queue 1 item 11):
+`get_dataset` raises for them.
 """
 
 from __future__ import annotations
@@ -302,6 +304,62 @@ class Synthetic(BaseDataset):
             self._cache[index] = item
         color, depth = item
         return index, color, depth, self.poses[index].astype(np.float32)
+
+    def gt_mesh(self, divisions: int = 60):
+        """Analytic ground-truth mesh of the room (walls + interior
+        objects), for reconstruction evaluation without downloads."""
+        verts_all, faces_all = [], []
+        n0 = 0
+
+        def add_grid_face(axis, val, lo, hi, div_a, div_b):
+            nonlocal n0
+            a, b = [i for i in range(3) if i != axis]
+            ua = np.linspace(lo[a], hi[a], div_a)
+            ub = np.linspace(lo[b], hi[b], div_b)
+            A, B = np.meshgrid(ua, ub, indexing="ij")
+            V = np.zeros((div_a, div_b, 3))
+            V[..., axis] = val
+            V[..., a] = A
+            V[..., b] = B
+            verts_all.append(V.reshape(-1, 3))
+            idx = np.arange(div_a * div_b).reshape(div_a, div_b)
+            q = np.stack([idx[:-1, :-1], idx[1:, :-1], idx[:-1, 1:],
+                          idx[1:, 1:]], -1).reshape(-1, 4)
+            faces_all.append(n0 + np.concatenate(
+                [q[:, [0, 1, 2]], q[:, [1, 3, 2]]], 0))
+            n0 += div_a * div_b
+
+        def add_box(lo, hi, div_per_m):
+            for axis in range(3):
+                a, b = [i for i in range(3) if i != axis]
+                da = max(2, int(np.ceil((hi[a] - lo[a]) * div_per_m)))
+                db = max(2, int(np.ceil((hi[b] - lo[b]) * div_per_m)))
+                for val in (lo[axis], hi[axis]):
+                    add_grid_face(axis, val, lo, hi, da, db)
+
+        # walls at the requested resolution, objects at matched density
+        div_per_m = divisions / float((self.box_hi - self.box_lo).max())
+        add_box(self.box_lo, self.box_hi, div_per_m)
+        for row in self._BOXES:
+            add_box(row[:3], row[3:], div_per_m)
+        for row in self._SPHERES:
+            c, rad = row[:3], row[3]
+            nu = max(8, int(np.ceil(2 * np.pi * rad * div_per_m)))
+            nv = max(5, nu // 2)
+            th = np.linspace(0, np.pi, nv)
+            ph = np.linspace(0, 2 * np.pi, nu)
+            T, P = np.meshgrid(th, ph, indexing="ij")
+            V = np.stack([c[0] + rad * np.sin(T) * np.cos(P),
+                          c[1] + rad * np.cos(T),
+                          c[2] + rad * np.sin(T) * np.sin(P)], -1)
+            verts_all.append(V.reshape(-1, 3))
+            idx = np.arange(nv * nu).reshape(nv, nu)
+            q = np.stack([idx[:-1, :-1], idx[1:, :-1], idx[:-1, 1:],
+                          idx[1:, 1:]], -1).reshape(-1, 4)
+            faces_all.append(n0 + np.concatenate(
+                [q[:, [0, 1, 2]], q[:, [1, 3, 2]]], 0))
+            n0 += nv * nu
+        return np.concatenate(verts_all), np.concatenate(faces_all)
 
 
 dataset_dict = {"synthetic": Synthetic}

@@ -106,7 +106,7 @@ def assert_close_scaled(a, b, rtol, floor):
 
 def test_convert_roundtrip_and_pretrained_pickle():
     tree = to_np(jax_params())
-    dec = decoders_from_numpy(tree)
+    dec = decoders_from_numpy(tree, "cpu")
     back = decoders_to_numpy(dec)
     names = dict(leaves_with_names(tree))
     got = dict(leaves_with_names(back))
@@ -116,7 +116,7 @@ def test_convert_roundtrip_and_pretrained_pickle():
     assert tuple(dec.geo.lin[0].w.shape) == (93, 32)
     with open("pretrained/geo_decoder.pkl", "rb") as f:
         geo = pickle.load(f)
-    dec2 = decoders_from_numpy({"geo": geo, "col": tree["col"]})
+    dec2 = decoders_from_numpy({"geo": geo, "col": tree["col"]}, "cpu")
     np.testing.assert_array_equal(
         decoders_to_numpy(dec2)["geo"]["lin"][3]["w"], geo["lin"][3]["w"])
     # the mapper's trainable mask matches the JAX mask leaf for leaf
@@ -133,7 +133,7 @@ def test_mlp_forwards(rng, bf16_mode, bf16):
     bf16_mode(bf16)
     tol = TOL[bf16]
     params = jax_params(1)
-    dec = decoders_from_numpy(to_np(params), bf16_trunks=bf16)
+    dec = decoders_from_numpy(to_np(params), "cpu", bf16_trunks=bf16)
     p = rng.uniform(-2, 2, (300, 3)).astype(np.float32)
     c = rng.normal(scale=0.1, size=(300, 32)).astype(np.float32)
     rel = rng.uniform(-0.1, 0.1, (300, 8, 3)).astype(np.float32)
@@ -219,7 +219,7 @@ def test_decode_neighbors_values_and_grads(rng, bf16_mode, bf16):
         jloss, argnums=(0, 1, 2), has_aux=True)(params, jnp.asarray(feats),
                                                 jnp.asarray(cam7))
 
-    dec = decoders_from_numpy(to_np(params), bf16_trunks=bf16)
+    dec = decoders_from_numpy(to_np(params), "cpu", bf16_trunks=bf16)
     tgrid = tknn.build(t(pos), t(valid), cell, T, M)
     tf = t(feats).requires_grad_(True)
     tc = t(cam7).requires_grad_(True)
@@ -229,7 +229,7 @@ def test_decode_neighbors_values_and_grads(rng, bf16_mode, bf16):
     D, I, nn = tknn.query(tgrid, t(pos), pts.detach(), k, cell)
     both = trend.gather_featpos(tf, t(pos), I)
     occ, rgb, has = trend.decode_neighbors(
-        dec, pts, ReplayDraws(noise), topts, "color", D, both, nn, cell)
+        dec, pts, ReplayDraws(noise, "cpu"), topts, "color", D, both, nn, cell)
     loss = torch.sum(occ * t(wo)) + torch.sum(rgb * t(wc))
     params_t = dict(dec.named_parameters())
     names = list(params_t)
@@ -282,10 +282,10 @@ def test_render_batch_ray_matches(rng):
         jout = jrend.render_batch_ray(
             params, jnp.asarray(pos), grid, jnp.asarray(feats), ro, rd,
             jnp.asarray(gt_d), jnp.asarray(gt_d > 0), key, ropts, "color")
-        dec = decoders_from_numpy(to_np(params), bf16_trunks=False)
+        dec = decoders_from_numpy(to_np(params), "cpu", bf16_trunks=False)
         tout = trend.render_batch_ray(
             dec, t(pos), tknn.build(t(pos), t(valid), cell, T, M), t(feats),
-            t(ro), t(rd), t(gt_d), t(gt_d > 0), ReplayDraws(noise),
+            t(ro), t(rd), t(gt_d), t(gt_d > 0), ReplayDraws(noise, "cpu"),
             port_render_options(ropts), "color")
         for a, b in zip(tout, jout):
             assert_close_scaled(a.detach(), b, 1e-4, 1e-6)

@@ -244,7 +244,7 @@ def grid_of_kind(kind, rng):
     state = map_state_from_numpy(
         pts, np.zeros((3000, 4), np.float32), 3000, np.asarray(gj.cell_data),
         np.asarray(gj.cell_fill), np.asarray(gj.cell_size),
-        np.asarray(gj.n_dropped))
+        np.asarray(gj.n_dropped), device="cpu")
     return state.grid, pts
 
 

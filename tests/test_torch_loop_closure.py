@@ -410,12 +410,33 @@ def test_port_imports_with_jax_and_cv2_blocked():
 # ---------------------------------------------------------------------------
 
 def _entry_points():
+    from loopy_slam_torch import convert
+    from loopy_slam_torch.config import DEFAULTS
+    from loopy_slam_torch.mapping import point_cloud
+    from loopy_slam_torch.models import decoder
+    from loopy_slam_torch.ops import draws
     from loopy_slam_torch.ops import orb
     from loopy_slam_torch.ops import tsdf
+    from loopy_slam_torch.tools.get_mesh_tsdf_fusion import mesh_from_renders
+    from loopy_slam_torch.utils import lpips
 
     des = np.zeros((4, 32), np.uint8)
     frame = (np.zeros((8, 8, 3), np.float32), np.ones((8, 8), np.float32))
+    cam = {"fx": 8.0, "fy": 8.0, "cx": 3.5, "cy": 3.5}
+    npz = os.path.join(ROOT, "pretrained", "lpips_alex_randfeat.npz")
     return {
+        "decoders_from_numpy": lambda: convert.decoders_from_numpy({}),
+        "map_state_from_numpy": lambda: convert.map_state_from_numpy(
+            np.zeros((4, 3)), np.zeros((4, 64)), 0, np.zeros((2, 4, 4)),
+            np.zeros(2), 0.1, 0),
+        "init_decoders": lambda: decoder.init_decoders(torch.Generator(),
+                                                       DEFAULTS),
+        "init_map": lambda: point_cloud.init_map(
+            point_cloud.MapOptions.from_cfg(DEFAULTS), capacity=16),
+        "ReplayDraws": lambda: draws.ReplayDraws([]),
+        "load_lpips": lambda: lpips.load_lpips(npz),
+        "mesh_from_renders": lambda: mesh_from_renders([frame], [np.eye(4)],
+                                                       cam, voxel=0.5),
         "init_grid": lambda: tsdf.init_grid([0, 0, 0], (2, 2, 2), 0.1),
         "grid_for_bounds": lambda: tsdf.grid_for_bounds([0, 0, 0],
                                                         [1, 1, 1], 0.5),

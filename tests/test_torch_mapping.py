@@ -81,7 +81,7 @@ def convert_state(s):
         np.asarray(g.cell_data), np.asarray(g.cell_fill),
         np.asarray(g.cell_size), np.asarray(g.n_dropped),
         in_pos=np.asarray(s.in_pos), in_rgb=np.asarray(s.in_rgb),
-        in_count=np.asarray(s.in_count))
+        in_count=np.asarray(s.in_count), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -134,7 +134,7 @@ def test_add_points_on_converted_map(scene):
         overlap=False)
     ts, tn = tmapper.add_points_from_frame(
         convert_state(scene["state"]), t(color), t(depth), t(c2w), t(prev),
-        ReplayDraws(draws), tpc.MapOptions(**mopts_map._asdict()),
+        ReplayDraws(draws, "cpu"), tpc.MapOptions(**mopts_map._asdict()),
         tmapper.MapperOptions(**{k: v for k, v in mopts._asdict().items()
                                  if k in tmapper.MapperOptions._fields}),
         n, overlap=False)
@@ -207,10 +207,10 @@ def test_track_one_frame_matches(scene):
         topts.H - topts.ignore_edge_H, topts.ignore_edge_W,
         topts.W - topts.ignore_edge_W)
     ts = convert_state(s)
-    dec = decoders_from_numpy(to_np(scene["params"]), bf16_trunks=False)
+    dec = decoders_from_numpy(to_np(scene["params"]), "cpu", bf16_trunks=False)
     tout = ttracker.track_frame(
         dec, ts.pos, ts.grid, ts.feat, t(color), t(depth), t(cam7),
-        ReplayDraws(draws), ttracker.TrackOptions(
+        ReplayDraws(draws, "cpu"), ttracker.TrackOptions(
             **{k: v for k, v in topts._asdict().items()
                if k in ttracker.TrackOptions._fields}),
         port_render_options(ropts), health=torch.zeros(3))
@@ -274,10 +274,10 @@ def test_mapping_chunk_matches(scene):
                          ropts.n_surface, ropts.c_dim, mopts.H, mopts.W,
                          n_geo, n_col)
     ts = convert_state(s)
-    dec = decoders_from_numpy(to_np(params), bf16_trunks=False)
+    dec = decoders_from_numpy(to_np(params), "cpu", bf16_trunks=False)
     feat, _, taux = tmapper.optimize_map(
         dec, ts.feat, None, t_mask(dec, cfg), t(feat_mask), ts.pos, ts.grid,
-        t(kc), t(kd), t(kp), ReplayDraws(draws), n_geo, n_col, lrs_geo,
+        t(kc), t(kd), t(kp), ReplayDraws(draws, "cpu"), n_geo, n_col, lrs_geo,
         lrs_col, tmapper.MapperOptions(
             **{k: v for k, v in mopts._asdict().items()
                if k in tmapper.MapperOptions._fields}),

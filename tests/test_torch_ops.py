@@ -116,7 +116,7 @@ def test_sampling_with_injected_draws(rng):
     jout = jsamp.sample_rays(key, 2, H - 2, 1, W - 1, n, jnp.asarray(c2w),
                              jnp.asarray(depth), jnp.asarray(color),
                              7.0, 7.0, 7.5, 5.5, depth_limit=2.5)
-    tout = tsamp.sample_rays(ReplayDraws(draws), 2, H - 2, 1, W - 1, n,
+    tout = tsamp.sample_rays(ReplayDraws(draws, "cpu"), 2, H - 2, 1, W - 1, n,
                              t(c2w), t(depth), t(color), 7.0, 7.0, 7.5, 5.5,
                              depth_limit=2.5)
     for a, b in zip(tout, jout):

@@ -18,8 +18,9 @@ Phases:
      --variants, also `variants`: the cold ms of each variant build;
   4. runs the slice-1 path: LoopySLAM on configs/Synthetic/room.yaml's
      values (segment_strategy none, color_refine off, visualizer off) for
-     16 frames (cut from 31 so that the whole script stays near ten
-     minutes on the card), with the kernels' launch counts reset just
+     8 frames (cut from 31, then 16, so that the whole script with the
+     TUM path stays near ten minutes on the card), with the kernels'
+     launch counts reset just
      before, and gates on launches > 0, ATE (aligned) <= 3 mm and no
      health-gate rejects;
   5. runs the segmented path: room.yaml as shipped (segment_strategy
@@ -48,17 +49,36 @@ Phases:
      evaluation error and launches > 0; then (6b) holds the kernel against
      its plain version at the render-chunk shape (4096 rays x N_surface
      samples) over that path's final map;
-  7. (only with --profile) a torch.profiler trace of a
+  7. (only with --profile, after phase 8) a torch.profiler trace of a
      6-frame session: device kernel time by kernel, and the device's busy
      share of the wall time (the profiler's own host cost included). The
      profiler's post-processing of ~1.8M kernel events takes about a
      quarter of an hour on the card's host; give the call time for it.
+  8. runs the TUM path: the port's fixture writer
+     (loopy_slam_torch.tools.make_sensor_fixtures) writes a 16-frame
+     TUM-format sequence of the synthetic room in freiburg1's geometry
+     (480x640, its published distortion, jittered 30 Hz timestamps,
+     dropped depth frames, zero-depth holes), then
+     `python -m loopy_slam_torch.run` runs
+     configs/TUM_RGBD/freiburg1_desk.yaml as shipped on it (dynamic query
+     radius, color-gradient picks, 5000 tracking pixels x 200 iterations,
+     10000 mapping pixels, color refinement, the final evaluation), only
+     the input, the output and both vis_freq (6) changed; prints a `tum:`
+     line (frames, crop, the r_query map's median/min/max, the gradient
+     pool and inserts, the phase times, ATE, rejects, peak memory,
+     launches, the host's PNG decoding and undistortion seconds a frame)
+     and gates on >= 10 associated frames, ATE < 2 cm, no rejects,
+     gradient inserts > 0, a mesh with faces, no evaluation error and
+     launches > 0; then (8b) holds the kernel against its plain version,
+     with per-query radii, at the tracking pool and a mapping pool over
+     that path's final map;
 
 Prints a JSON line of per-kernel numbers, then the card's name and power
 limit, then {"ok": true, "device": {...}} as the last line. Exits non-zero
 (and prints no result) without a CUDA device or if any phase fails.
-Imports nothing of JAX; needs no PyYAML (phases 3-5 build their config
-from DEFAULTS, phase 6 reads YAML with the port's own reader).
+Imports nothing of JAX; needs no PyYAML, cv2 or PIL (phases 3-5 build
+their config from DEFAULTS, phases 6 and 8 read YAML with the port's own
+reader, and phase 8 writes and reads its PNGs with the port's codec).
 """
 
 from __future__ import annotations
@@ -283,11 +303,12 @@ def build_variants(out_dir):
     return libs
 
 
-def bare_launch(grid, q, k, radius: float, lib=None):
+def bare_launch(grid, q, k, radius, lib=None):
     """A no-argument function making the bare knn_select_launch call on
     outputs allocated once here: the wrapper's checks, allocations and
-    library lookup stay outside the timed window. lib: a library other
-    than the kernels' (a variant build)."""
+    library lookup stay outside the timed window. radius: a float, or a
+    contiguous (Q,) float32 tensor of per-query radii (the kernel's radius
+    pointer). lib: a library other than the kernels' (a variant build)."""
     import ctypes
 
     import torch
@@ -302,16 +323,20 @@ def bare_launch(grid, q, k, radius: float, lib=None):
     D = torch.empty((Q, k), dtype=torch.float32, device=q.device)
     I = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     nn = torch.empty((Q,), dtype=torch.int32, device=q.device)
-    args = (cd.data_ptr(), grid.cell_fill.data_ptr(), q.data_ptr(), None,
-            ctypes.c_float(radius), grid.cell_size.data_ptr(), D.data_ptr(),
-            I.data_ptr(), nn.data_ptr(), Q, T, M, knn._id_bits(M), k,
-            torch.cuda.current_stream().cuda_stream)
-    keep = (D, I, nn)
+    if isinstance(radius, torch.Tensor):
+        r_ptr, r_scalar = radius.data_ptr(), 0.0
+    else:
+        r_ptr, r_scalar = None, float(radius)
+    args = (cd.data_ptr(), grid.cell_fill.data_ptr(), q.data_ptr(), r_ptr,
+            ctypes.c_float(r_scalar), grid.cell_size.data_ptr(),
+            D.data_ptr(), I.data_ptr(), nn.data_ptr(), Q, T, M,
+            knn._id_bits(M), k, torch.cuda.current_stream().cuda_stream)
+    keep = (D, I, nn, radius)
 
     def launch():
         if lib.knn_select_launch(*args) != 0:
             raise RuntimeError("knn_select_launch failed")
-        return keep
+        return keep[:3]
 
     return launch
 
@@ -372,13 +397,14 @@ def pool_queries(views, frames, per_frame, cfg, draw):
     return torch.cat(out).contiguous()
 
 
-def knn_bound(grid, queries, k):
+def knn_bound(grid, queries, k, per_query_radius=False):
     """Least time for the k-NN function on these inputs, the larger of two.
     Bytes over HBM bandwidth: the fill count and the filled slots of each
     row the queries touch, read once (empty slots hold the 1e9 sentinel and
-    change no output), the queries and cell_size read, D/I/neighbor_num
-    written. f32 operations over the f32 peak: 8 per filled candidate in
-    each query's stencil (3 sub, 3 mul, 2 add)."""
+    change no output), the queries, their radii (per_query_radius) and
+    cell_size read, D/I/neighbor_num written. f32 operations over the f32
+    peak: 8 per filled candidate in each query's stencil (3 sub, 3 mul, 2
+    add)."""
     import torch
 
     from loopy_slam_torch.ops import knn
@@ -388,24 +414,49 @@ def knn_bound(grid, queries, k):
     rows = torch.unique(h)
     Q = queries.shape[0]
     nbytes = (int(fill[rows].sum()) * 16 + rows.numel() * 4
-              + Q * 12 + 4 + Q * (k * 8 + 4))
+              + Q * (16 if per_query_radius else 12) + 4 + Q * (k * 8 + 4))
     ops = int(fill[h].sum()) * 8
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
+# the plain version materializes (Q, 27*M, 4) float32 candidates; above
+# this many bytes it runs in chunks of queries (the same outputs)
+PLAIN_CHUNK_BYTES = 4 << 30
+
+
+def plain_query(grid, q, k, r):
+    """knn._query_plain over q, in chunks of queries when its candidate
+    rows would pass PLAIN_CHUNK_BYTES; r is a float or a (Q,) tensor."""
+    import torch
+
+    from loopy_slam_torch.ops import knn
+
+    row_bytes = 27 * grid.cell_data.shape[1] * 16
+    chunk = max(PLAIN_CHUNK_BYTES // row_bytes, 1)
+    Q = q.shape[0]
+    if Q <= chunk:
+        return knn._query_plain(grid, q, k, r)
+    per_query = isinstance(r, torch.Tensor)
+    outs = [knn._query_plain(grid, q[s:s + chunk], k,
+                             r[s:s + chunk] if per_query else r)
+            for s in range(0, Q, chunk)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 def check_shape(name, grid, q, k, r, variant_libs=None):
     """The kernel against its plain version on one shape (bit-equal D, I
     and neighbor_num, by the wrapper and by a bare launch), its times and
-    its bound; raises on any disagreement."""
+    its bound; raises on any disagreement. r: the query radius, a float or
+    a (Q,) tensor of per-query radii."""
     import torch
 
     from loopy_slam_torch.ops import knn
 
     M = grid.cell_data.shape[1]
     D, I, nn = knn._query_cuda(grid, q, k, r)
-    Dp, Ip, nnp = knn._query_plain(grid, q, k, r)
+    Dp, Ip, nnp = plain_query(grid, q, k, r)
     torch.cuda.synchronize()
     same_I = bool(torch.equal(I, Ip))
     same_nn = bool(torch.equal(nn, nnp))
@@ -423,9 +474,11 @@ def check_shape(name, grid, q, k, r, variant_libs=None):
         variants[vname] = time_device(launch)
     ms, ms_warm = variants.pop("kernel")
     call_ms = time_cuda(lambda: knn._query_cuda(grid, q, k, r))
-    plain_ms = time_cuda(lambda: knn._query_plain(grid, q, k, r))
-    bound_ms, bound_by, nbytes, ops = knn_bound(grid, q, k)
+    plain_ms = time_cuda(lambda: plain_query(grid, q, k, r))
+    per_query = isinstance(r, torch.Tensor)
+    bound_ms, bound_by, nbytes, ops = knn_bound(grid, q, k, per_query)
     res = {"shape": name, "Q": int(q.shape[0]), "M": int(M),
+           "radius": "per query" if per_query else float(r),
            "table": int(grid.cell_data.shape[0] - 1),
            "id_bits": knn._id_bits(M), "D_bit_equal": same_D,
            "I_equal": same_I, "nn_equal": same_nn,
@@ -772,6 +825,28 @@ def cli_phase():
     return summary, overlay
 
 
+def checkpoint_grid(cfg, ck, device):
+    """The hash grid of a checkpoint's map, indexed as restore() indexes
+    it (build_adaptive at the capacity the growth policy gives)."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch.mapping.point_cloud import MapOptions
+    from loopy_slam_torch.ops import knn
+
+    mopts = MapOptions.from_cfg(cfg)
+    n = int(ck["map"]["count"])
+    cap = min(int(cfg["pointcloud"].get("initial_capacity", 2 ** 15)),
+              mopts.capacity)
+    while cap < n + 6000:
+        cap *= 2
+    pos = torch.zeros((cap, 3), device=device)
+    pos[:n] = torch.as_tensor(np.asarray(ck["map"]["pos"], np.float32))
+    return knn.build_adaptive(pos, torch.arange(cap, device=device) < n,
+                              mopts.cell_size, mopts.table_size,
+                              mopts.max_per_cell)
+
+
 def render_chunk_check(overlay, device):
     """The kernel against its plain version at the render-chunk shape: one
     chunk of render_img (4096 rays x N_surface samples, guided by the
@@ -782,8 +857,6 @@ def render_chunk_check(overlay, device):
 
     from loopy_slam_torch import run as cli
     from loopy_slam_torch.config import load_config
-    from loopy_slam_torch.mapping.point_cloud import MapOptions
-    from loopy_slam_torch.ops import knn
     from loopy_slam_torch.ops.camera import get_rays
     from loopy_slam_torch.ops.sampling import pixels_to_points, surface_z_vals
     from loopy_slam_torch.utils.datasets import Synthetic
@@ -792,17 +865,7 @@ def render_chunk_check(overlay, device):
     print("== phase 6b: knn_select at the render-chunk shape", flush=True)
     cfg = load_config(overlay)
     ck = load_checkpoint(cli.latest_checkpoint(cfg["data"]["output"]))
-    mopts = MapOptions.from_cfg(cfg)
-    n = int(ck["map"]["count"])
-    cap = min(int(cfg["pointcloud"].get("initial_capacity", 2 ** 15)),
-              mopts.capacity)
-    while cap < n + 6000:
-        cap *= 2
-    pos = torch.zeros((cap, 3), device=device)
-    pos[:n] = torch.as_tensor(np.asarray(ck["map"]["pos"], np.float32))
-    grid = knn.build_adaptive(pos, torch.arange(cap, device=device) < n,
-                              mopts.cell_size, mopts.table_size,
-                              mopts.max_per_cell)
+    grid = checkpoint_grid(cfg, ck, device)
     idx = 2 * CLI_STOP
     _, _, depth_np, _ = Synthetic(cfg)[idx]
     cam = cfg["cam"]
@@ -823,6 +886,274 @@ def render_chunk_check(overlay, device):
             f"T={grid.cell_data.shape[0] - 1}")
     return check_shape(name, grid, q, cfg["pointcloud"]["nn_num"],
                        cfg["pointcloud"]["radius_query"])
+
+
+TUM_FRAMES = 16
+TUM_VIS_FREQ = 6
+# the JAX package's band for its tiny TUM-format fixture session is 6 cm
+# (tests/test_sensor_fixtures.py); at full width the card's runs measured
+# 5.4-5.5 mm, so the gate is 2 cm: ~3.6x that, while a session that loses
+# track ends decimeters off (PERF.md)
+TUM_ATE_GATE_M = 0.02
+TUM_MIN_FRAMES = 10
+
+
+def tum_overlay(out: str, fixture: str) -> str:
+    """Write the TUM path's config: configs/TUM_RGBD/freiburg1_desk.yaml
+    as shipped, with only the input folder, the output directory and the
+    visualizer frequency changed. Returns its path."""
+    path = os.path.join(out, "tum_cli.yaml")
+    desk = os.path.join(HERE, "configs", "TUM_RGBD", "freiburg1_desk.yaml")
+    with open(path, "w") as f:
+        f.write(f"inherit_from: {json.dumps(desk)}\n"
+                f"data: {{input_folder: {json.dumps(fixture)}, "
+                f"output: {json.dumps(out)}}}\n"
+                f"tracking: {{vis_freq: {TUM_VIS_FREQ}}}\n"
+                f"mapping: {{vis_freq: {TUM_VIS_FREQ}}}\n")
+    return path
+
+
+def host_frame_costs(ds):
+    """Per-frame host seconds of the loader's two costs on the sequence:
+    PNG decoding (color and depth) and undistortion (the remap, its map
+    made once), and the map's one-off seconds."""
+    from loopy_slam_torch.utils.datasets import as_intrinsics_matrix
+    from loopy_slam_torch.utils.imageio import (read_png, remap_linear,
+                                                undistort_map)
+
+    png_s, und_s = [], []
+    t0 = time.perf_counter()
+    color = read_png(ds.color_paths[0])
+    taps = undistort_map(as_intrinsics_matrix([ds.fx, ds.fy, ds.cx, ds.cy]),
+                         ds.distortion, *color.shape[:2])
+    map_s = time.perf_counter() - t0
+    for cp, dp in zip(ds.color_paths, ds.depth_paths):
+        t0 = time.perf_counter()
+        color = read_png(cp)
+        read_png(dp)
+        t1 = time.perf_counter()
+        remap_linear(color[..., :3], taps)
+        und_s.append(time.perf_counter() - t1)
+        png_s.append(t1 - t0)
+    return png_s, und_s, map_s
+
+
+def tum_phase():
+    """The TUM path: the port's fixture writer puts a TUM-format sequence
+    of the synthetic room in freiburg1's geometry (480x640, its published
+    distortion, jittered 30 Hz timestamps, dropped depth frames, zero-depth
+    holes) on disk, then `python -m loopy_slam_torch.run` (its `main`)
+    runs freiburg1_desk.yaml as shipped on it, with the kernel's launch
+    count reset just before and read just after. Returns (summary,
+    overlay path)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.ops import knn
+    from loopy_slam_torch.ops.image import dynamic_radius_maps
+    from loopy_slam_torch.tools.make_sensor_fixtures import write_tum
+    from loopy_slam_torch.utils.datasets import get_dataset
+    from loopy_slam_torch.utils.io import read_ply_mesh
+
+    print(f"== phase 8: the TUM path, freiburg1_desk.yaml on a "
+          f"{TUM_FRAMES}-frame TUM-format sequence", flush=True)
+    out = os.path.join(HERE, "output", "chip_smoke_tum")
+    shutil.rmtree(out, ignore_errors=True)
+    fixture = os.path.join(out, "sequence")
+    t0 = time.perf_counter()
+    written = write_tum(fixture, TUM_FRAMES, 1.0 / 200.0)
+    fixture_s = time.perf_counter() - t0
+    overlay = tum_overlay(out, fixture)
+    knn.KNN_SELECT_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = cli.main([overlay])
+    run_s = time.perf_counter() - t0
+    launches = knn.KNN_SELECT_LAUNCHES.count
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    cfg = load_config(overlay)
+    ds = get_dataset(cfg)
+    pc = cfg["pointcloud"]
+    rq = np.concatenate([dynamic_radius_maps(
+        ds[i][1], pc["radius_add_max"], pc["radius_add_min"],
+        pc["radius_query_ratio"], pc["color_grad_threshold"])[1].ravel()
+        for i in range(len(ds))])
+    png_s, und_s, map_s = host_frame_costs(ds)
+    mesh_path = os.path.join(out, "mesh", "final_mesh.ply")
+    n_faces = (len(read_ply_mesh(mesh_path)[1])
+               if os.path.exists(mesh_path) else 0)
+    vis = sorted(f"{d}/{f}" for d in ("tracking_vis", "mapping_vis")
+                 if os.path.isdir(os.path.join(out, d))
+                 for f in os.listdir(os.path.join(out, d))
+                 if f.endswith(".png"))
+    t = stats["timings_s"]
+    g = stats["grad_stats"]
+    med = lambda v: float(np.median(v)) if v else None  # noqa: E731
+    summary = {
+        "frames_written": TUM_FRAMES, "rgb_files": written["rgb"],
+        "depth_files": written["depth"], "frames_associated": len(ds),
+        "crop_hw": list(ds[0][1].shape[:2]),
+        "r_query_median": float(np.median(rq)),
+        "r_query_min": float(rq.min()), "r_query_max": float(rq.max()),
+        "track_grad_pool_median": med(g["track_pool"]),
+        "track_grad_pool_min": min(g["track_pool"], default=None),
+        "grad_insert_locations": g["map_locations"],
+        "grad_insert_points": sum(g["map_locations"]) * pc["N_add"],
+        "track_median_s": med(t.get("track")),
+        "map_median_s": med(t.get("map")),
+        "map_times_s": t.get("map"),
+        "color_refine_s": (t.get("color_refine") or [None])[-1],
+        "vis_median_s": med(t.get("vis")), "vis_images": vis,
+        "eval_timings_s": stats.get("eval_timings_s"),
+        "eval_error": stats.get("eval_error"),
+        "psnr": stats.get("psnr"), "depth_l1": stats.get("depth_l1"),
+        "ate_rmse_m": stats["rmse"],
+        "ate_rmse_noalign_m": stats["rmse_no_align"],
+        "health_rejects": stats["health_rejects"],
+        "segments": stats["segments"], "n_points": stats["n_points"],
+        "mesh_faces": n_faces, "peak_mem_gb": peak_gb,
+        "knn_select_launches": launches,
+        "png_decode_s_per_frame": med(png_s),
+        "undistort_s_per_frame": med(und_s), "undistort_map_s": map_s,
+        "fixture_write_s": fixture_s, "run_s": run_s,
+    }
+    print("tum:", json.dumps(summary), flush=True)
+    failures = []
+    if summary["frames_associated"] < TUM_MIN_FRAMES:
+        failures.append(f"{summary['frames_associated']} frames associated "
+                        f"< {TUM_MIN_FRAMES}")
+    if not summary["ate_rmse_m"] < TUM_ATE_GATE_M:
+        failures.append(f"ATE {summary['ate_rmse_m']} m not < "
+                        f"{TUM_ATE_GATE_M} m")
+    if summary["health_rejects"]:
+        failures.append(f"{summary['health_rejects']} health-gate rejects")
+    if summary["grad_insert_points"] <= 0:
+        failures.append("the color-gradient picks inserted no point")
+    if n_faces <= 0:
+        failures.append("final_mesh.ply has no faces")
+    if summary["eval_error"]:
+        failures.append(f"the final evaluation failed: "
+                        f"{summary['eval_error']}")
+    if launches <= 0:
+        failures.append("the TUM path never launched the knn_select kernel")
+    if failures:
+        raise AssertionError("the TUM path: " + "; ".join(failures))
+    return summary, overlay
+
+
+def radius_pool_queries(views, per_frame, cam, rcfg, gen, pools=None):
+    """Sample positions and their per-query radii shaped like the main
+    path's pools with the dynamic radius: per_frame pixels of each view
+    (color, depth, c2w, r_query map) -- uniform, or drawn from the view's
+    pool of flat pixel indices (the tracker's color-gradient picks) --
+    with N_surface depth-guided samples per ray, each with its ray's
+    radius. The pool's z-values use the inside gate over all its rays, as
+    the mapper's pool does."""
+    import torch
+
+    from loopy_slam_torch.ops.camera import rays_from_uv
+    from loopy_slam_torch.ops.sampling import (inside_mask_from_depth,
+                                               surface_z_vals)
+
+    S = rcfg["N_surface"]
+    rays, ds, rqs = [], [], []
+    for n, (_, depth, c2w, rq) in enumerate(views):
+        H, W = depth.shape
+        dev = depth.device
+        if pools is None:
+            j = torch.randint(0, H, (per_frame,), generator=gen, device=dev)
+            i = torch.randint(0, W, (per_frame,), generator=gen, device=dev)
+        else:
+            pool = pools[n]
+            flat = pool[torch.randint(0, pool.numel(), (per_frame,),
+                                      generator=gen, device=dev)]
+            j, i = flat // W, flat % W
+        ro, rd = rays_from_uv(i.float(), j.float(), c2w, cam["fx"],
+                              cam["fy"], cam["cx"], cam["cy"])
+        rays.append((ro, rd))
+        ds.append(depth[j, i])
+        rqs.append(rq[j, i])
+    d = torch.cat(ds)
+    z = surface_z_vals(d, inside_mask_from_depth(d, d > 0), S,
+                       rcfg["near_end_surface"], rcfg["far_end_surface"],
+                       rcfg["near_end"])
+    ro = torch.cat([r[0] for r in rays])
+    rd = torch.cat([r[1] for r in rays])
+    q = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3)
+    r = torch.repeat_interleave(torch.cat(rqs), S)
+    return q.contiguous(), r.contiguous()
+
+
+def tum_kernel_check(overlay, device):
+    """The kernel against its plain version at the TUM path's two new
+    shapes, both with per-query radii, over that path's final map (the
+    dynamic radius's 0.16 m cells, M >= 64): the tracking pool
+    (pool_factor x pixels rays drawn from the last frame's color-gradient
+    pool, at its estimated pose) and a mapping pool (pixel_pool_factor x
+    pixels / window rays of each of the window's frames, the last mapped
+    frames at their estimated poses)."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.ops.image import (dynamic_radius_maps,
+                                            select_pixels_by_grad)
+    from loopy_slam_torch.slam import update_cam
+    from loopy_slam_torch.utils.datasets import get_dataset
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    print("== phase 8b: knn_select at the TUM pools, per-query radii",
+          flush=True)
+    cfg = load_config(overlay)
+    ck = load_checkpoint(cli.latest_checkpoint(cfg["data"]["output"]))
+    grid = checkpoint_grid(cfg, ck, device)
+    ds = get_dataset(cfg)
+    cam = update_cam(cfg)
+    pc, t, m = cfg["pointcloud"], cfg["tracking"], cfg["mapping"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+
+    def view(i):
+        _, color, depth, _ = ds[i]
+        _, rq = dynamic_radius_maps(
+            color, pc["radius_add_max"], pc["radius_add_min"],
+            pc["radius_query_ratio"], pc["color_grad_threshold"])
+        pose = np.asarray(ck["estimate_c2w_list"][i], np.float32)
+        return (color, torch.as_tensor(depth, device=device),
+                torch.as_tensor(pose, device=device),
+                torch.as_tensor(rq, device=device))
+
+    last = len(ds) - 1
+    v = view(last)
+    flat, _ = select_pixels_by_grad(
+        t["ignore_edge_H"], cam["H"] - t["ignore_edge_H"],
+        t["ignore_edge_W"], cam["W"] - t["ignore_edge_W"], t["pixels"],
+        v[0], gt_depth=v[1].cpu().numpy(), depth_limit=t["depth_limit"])
+    n_track = t["pixels"] * t.get("pool_factor", 4)
+    q, r = radius_pool_queries(
+        [v], n_track, cam, cfg["rendering"], gen,
+        pools=[torch.as_tensor(flat, device=device)])
+    k = pc["nn_num"]
+    M, T = grid.cell_data.shape[1], grid.cell_data.shape[0] - 1
+    results = [check_shape(f"tum_track_pool Q={q.shape[0]} M={M} T={T}",
+                           grid, q, k, r)]
+    # the mapper pads its window to mapping_window_size frames by repeats
+    window = m["mapping_window_size"]
+    mapped = list(range(last, -1, -m["every_frame"]))
+    frames = [mapped[i % len(mapped)] for i in range(window)]
+    per_frame = m.get("pixel_pool_factor", 8) * max(m["pixels"] // window, 1)
+    q, r = radius_pool_queries([view(i) for i in frames], per_frame, cam,
+                               cfg["rendering"], gen)
+    results.append(check_shape(
+        f"tum_map_pool Q={q.shape[0]} F={len(frames)} M={M} T={T}", grid,
+        q, k, r))
+    return results
 
 
 def profile_phase(device, n_frames=6, top=15):
@@ -869,7 +1200,7 @@ def profile_phase(device, n_frames=6, top=15):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=16,
+    ap.add_argument("--frames", type=int, default=8,
                     help="frames of the slice-1 path (phase 4)")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler trace of a 6-frame session")
@@ -913,6 +1244,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cli_summary, overlay = cli_phase()
     shape_results.append(render_chunk_check(overlay, device))
+    torch.cuda.empty_cache()
+    tum_summary, tum_cfg = tum_phase()
+    shape_results += tum_kernel_check(tum_cfg, device)
     if args.profile:
         profile_phase(device)
 
@@ -925,11 +1259,13 @@ def main(argv=None) -> int:
         # each path's count, reset just before its run and read just after
         "launches": (summary["knn_select_launches"]
                      + seg_summary["knn_select_launches"]
-                     + cli_summary["knn_select_launches"]),
+                     + cli_summary["knn_select_launches"]
+                     + tum_summary["knn_select_launches"]),
         "launches_by_path": {
             "slice1": summary["knn_select_launches"],
             "segmented": seg_summary["knn_select_launches"],
-            "cli": cli_summary["knn_select_launches"]},
+            "cli": cli_summary["knn_select_launches"],
+            "tum": tum_summary["knn_select_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in shape_results),
         "ms": main_shape["ms"],
         "call_ms": main_shape["call_ms"],

@@ -3,8 +3,9 @@
 The CUDA sources in this directory are compiled at first use with nvcc
 into a shared library with a plain C interface, loaded with ctypes (no
 PyTorch headers, so a build takes seconds). The host mesh rasterizer
-(`raster_depth.cpp`) is a library of its own, built with g++, so that it
-builds wherever a C++ compiler is, the CPU tests' machine included. Each
+(`raster_depth.cpp`) and the PNG reader's unfilter (`png_unfilter.cpp`)
+are libraries of their own, built with g++, so that they build wherever a
+C++ compiler is, the CPU tests' machine included. Each
 library lands in `loopy_slam_torch/_build/`, named by a hash of its
 sources, its flags and the compiler's version, so a changed source or flag
 rebuilds and an unchanged one loads the existing file. A failed build
@@ -32,14 +33,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-# the host rasterizer: the JAX package's g++ flags for the same source, and
-# no fused multiply-adds on any host
+# the host libraries: the JAX package's g++ flags for the rasterizer's
+# source, and no fused multiply-adds on any host
 RASTER_SOURCE = "raster_depth.cpp"
+PNG_SOURCE = "png_unfilter.cpp"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_raster_lib: Optional[ctypes.CDLL] = None
+_host_libs: dict = {}  # source -> loaded g++ library
 BUILD_LOG: dict = {}  # last build: {"path", "seconds", "log"} (empty if loaded)
 
 
@@ -106,26 +108,41 @@ def build_library() -> str:
                     BUILD_LOG)
 
 
-def load_raster_library() -> ctypes.CDLL:
-    """Build (if needed) and load the host rasterizer, once per process;
-    raises when g++ is missing or the build fails."""
-    global _raster_lib
+def _load_host_library(source: str, stem: str, what: str, fn_name: str,
+                       argtypes) -> ctypes.CDLL:
+    """Build (if needed) and load the g++ library of `source`, once per
+    process, declaring its C entry point; raises when g++ is missing or
+    the build fails."""
     with _lock:
-        if _raster_lib is None:
+        if source not in _host_libs:
             gxx = shutil.which("g++")
             if gxx is None:
                 raise FileNotFoundError(
-                    "g++ not found on PATH; the mesh rasterizer of the "
-                    "reconstruction metrics is built from source at first "
-                    "use")
-            lib = ctypes.CDLL(_compile(gxx, (RASTER_SOURCE,), GXX_FLAGS,
-                                       "loopy_raster", {}))
-            vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-            fn = lib.raster_depth
-            fn.argtypes = [vp, ci, vp, ci, vp, ci, ci, cd, cd, cd, cd, vp]
-            fn.restype = ci
-            _raster_lib = lib
-        return _raster_lib
+                    f"g++ not found on PATH; {what} is built from source at "
+                    "first use")
+            lib = ctypes.CDLL(_compile(gxx, (source,), GXX_FLAGS, stem, {}))
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _host_libs[source] = lib
+        return _host_libs[source]
+
+
+def load_raster_library() -> ctypes.CDLL:
+    """The host mesh rasterizer of the reconstruction metrics."""
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    return _load_host_library(
+        RASTER_SOURCE, "loopy_raster",
+        "the mesh rasterizer of the reconstruction metrics", "raster_depth",
+        [vp, ci, vp, ci, vp, ci, ci, cd, cd, cd, cd, vp])
+
+
+def load_png_library() -> ctypes.CDLL:
+    """The PNG reader's scanline unfilter."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return _load_host_library(PNG_SOURCE, "loopy_png",
+                              "the PNG reader's unfilter", "png_unfilter",
+                              [vp, vp, ci, ci, ci])
 
 
 def load_library() -> ctypes.CDLL:

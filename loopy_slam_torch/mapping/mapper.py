@@ -13,7 +13,8 @@ stage adds w_color_loss * color L1 against targets clipped to
 [1/510, 1 - 1/510].
 
 Random draws (ops/draws.py), in order. Insertion: rows (n,), cols (n,),
-then the new features' normals. A pooled chunk: the pool's rows (F, P)
+then the new features' normals; insertion at given pixels (the
+color-gradient picks): the normals only. A pooled chunk: the pool's rows (F, P)
 and cols (F, P); then per iteration the picks (F, pix_per_frame) and the
 decode's noise (geometry, then color in the color stage). Unpooled
 iteration: rows (F, pix) and cols (F, pix), then the decode's noise.
@@ -75,10 +76,12 @@ class MapperOptions(NamedTuple):
 
 def sample_insert_candidates(draw, gt_color, gt_depth, cur_c2w, prev_c2w,
                              opts: MapperOptions, n_rays: int,
-                             overlap: Optional[bool] = None):
+                             overlap: Optional[bool] = None,
+                             dynamic_r_add=None):
     """Sample n_rays pixels and apply the previous-frustum overlap split.
-    Returns (rays_o, rays_d, d, c, valid)."""
-    rays_o, rays_d, d, c, valid, _, _ = sample_rays(
+    Returns (rays_o, rays_d, d, c, valid, dra): dra is the (H, W) map
+    dynamic_r_add at the picked pixels, or None."""
+    rays_o, rays_d, d, c, valid, ii, jj = sample_rays(
         draw, 0, opts.H, 0, opts.W, n_rays, cur_c2w, gt_depth, gt_color,
         opts.fx, opts.fy, opts.cx, opts.cy)
     if overlap is not None:
@@ -88,20 +91,52 @@ def sample_insert_candidates(draw, gt_color, gt_depth, cur_c2w, prev_c2w,
         inside = ((uv[:, 0] > 0) & (uv[:, 0] < opts.W)
                   & (uv[:, 1] > 0) & (uv[:, 1] < opts.H))
         valid = valid & (inside if overlap else ~inside)
-    return rays_o, rays_d, d, c, valid
+    dra = None if dynamic_r_add is None else dynamic_r_add[jj, ii]
+    return rays_o, rays_d, d, c, valid, dra
 
 
 @torch.no_grad()
 def add_points_from_frame(state: MapState, gt_color, gt_depth, cur_c2w,
                           prev_c2w, draw, mopts: MapOptions,
                           opts: MapperOptions, n_rays: int,
-                          overlap: Optional[bool] = None):
+                          overlap: Optional[bool] = None,
+                          dynamic_r_add=None):
     """Sample n_rays pixels of the current frame and insert surface points.
     overlap=None: no frustum split (frame 0); False: keep only points
-    OUTSIDE the previous mapped frame's frustum; True: only INSIDE it."""
-    rays_o, rays_d, d, c, valid = sample_insert_candidates(
-        draw, gt_color, gt_depth, cur_c2w, prev_c2w, opts, n_rays, overlap)
-    return add_points(state, mopts, draw, rays_o, rays_d, d, c, valid)
+    OUTSIDE the previous mapped frame's frustum; True: only INSIDE it.
+    dynamic_r_add: the frame's (H, W) add-radius map, or None."""
+    rays_o, rays_d, d, c, valid, dra = sample_insert_candidates(
+        draw, gt_color, gt_depth, cur_c2w, prev_c2w, opts, n_rays, overlap,
+        dynamic_r_add)
+    return add_points(state, mopts, draw, rays_o, rays_d, d, c, valid,
+                      dynamic_r_add=dra)
+
+
+def pixel_insert_candidates(flat_idx, gt_color, gt_depth, cur_c2w,
+                            opts: MapperOptions, dynamic_r_add=None):
+    """Candidate tuple (rays_o, rays_d, d, c, valid, dra) of pre-selected
+    pixels, given as flat row-major indices (the color-gradient picks);
+    dra is the (H, W) map dynamic_r_add at those pixels, or None."""
+    jj = torch.div(flat_idx, opts.W, rounding_mode="floor").long()
+    ii = (flat_idx % opts.W).long()
+    rays_o, rays_d = rays_from_uv(ii.float(), jj.float(), cur_c2w,
+                                  opts.fx, opts.fy, opts.cx, opts.cy)
+    d = gt_depth[jj, ii]
+    dra = None if dynamic_r_add is None else dynamic_r_add[jj, ii]
+    return rays_o, rays_d, d, gt_color[jj, ii], d > 0, dra
+
+
+@torch.no_grad()
+def add_points_at_pixels(state: MapState, gt_color, gt_depth, cur_c2w,
+                         flat_idx, draw, mopts: MapOptions,
+                         opts: MapperOptions, dynamic_r_add=None):
+    """Insert points at pre-selected pixels (the color-gradient picks),
+    gated by radius_min or the frame's dynamic add-radius map. Draws: the
+    new features' normals only."""
+    rays_o, rays_d, d, c, valid, dra = pixel_insert_candidates(
+        flat_idx, gt_color, gt_depth, cur_c2w, opts, dynamic_r_add)
+    return add_points(state, mopts, draw, rays_o, rays_d, d, c, valid,
+                      dynamic_r_add=dra, is_pts_grad=True)
 
 
 @torch.no_grad()
@@ -126,18 +161,21 @@ def frustum_feature_mask(map_pos, count, cur_c2w, gt_depth,
 # The optimization loop
 # ---------------------------------------------------------------------------
 
-def _window_rays(draw, kf_color, kf_depth, kf_c2w, opts: MapperOptions,
-                 n: int):
-    """n rays per window frame: (ro, rd, d, c, valid), each (F, n, ...)."""
+def _window_rays(draw, kf_color, kf_depth, kf_c2w, kf_rq,
+                 opts: MapperOptions, n: int):
+    """n rays per window frame: (ro, rd, d, c, valid, rq), each
+    (F, n, ...); rq is the per-ray query radius read from the frames'
+    (F, H, W) maps kf_rq, or None without them."""
     F = kf_color.shape[0]
     j = draw.randint((F, n), 0, opts.H)
     i = draw.randint((F, n), 0, opts.W)
     f = torch.arange(F, device=kf_color.device)[:, None]
     d = kf_depth[f, j, i]
     c = kf_color[f, j, i]
+    rq = None if kf_rq is None else kf_rq[f, j, i]
     ro, rd = rays_from_uv(i.float(), j.float(), kf_c2w, opts.fx, opts.fy,
                           opts.cx, opts.cy)
-    return ro, rd, d, c, d > 0
+    return ro, rd, d, c, d > 0, rq
 
 
 def _loss_terms(d, c, inside, valid_ray, depth, color, stage,
@@ -156,20 +194,21 @@ def _loss_terms(d, c, inside, valid_ray, depth, color, stage,
                   torch.sum(m).float())
 
 
-def _map_loss(dec, feats, map_pos, grid, kf_color, kf_depth, kf_c2w, draw,
-              stage, opts: MapperOptions, ropts: RenderOptions,
+def _map_loss(dec, feats, map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq,
+              draw, stage, opts: MapperOptions, ropts: RenderOptions,
               pix_per_frame: int):
     """One mapping iteration's loss over pix_per_frame fresh rays from each
     of the F window frames (last = current frame)."""
-    ro, rd, d, c, valid = _window_rays(draw, kf_color, kf_depth, kf_c2w,
-                                       opts, pix_per_frame)
+    ro, rd, d, c, valid, rq = _window_rays(draw, kf_color, kf_depth, kf_c2w,
+                                           kf_rq, opts, pix_per_frame)
     ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
     d, valid, c = d.reshape(-1), valid.reshape(-1), c.reshape(-1, 3)
     med = masked_median(d, valid)
     mx = masked_max(d, valid, fill=0.0)
     inside = valid & (d <= torch.minimum(10.0 * med, 1.2 * mx))
     depth, _var, color, valid_ray = render_batch_ray(
-        dec, map_pos, grid, feats, ro, rd, d, inside, draw, ropts, stage)
+        dec, map_pos, grid, feats, ro, rd, d, inside, draw, ropts, stage,
+        r_query=None if rq is None else rq.reshape(-1))
     return _loss_terms(d, c, inside, valid_ray, depth, color, stage, opts)
 
 
@@ -182,21 +221,22 @@ class _NeighborPool(NamedTuple):
     c: torch.Tensor       # (F, P, 3) gt color
     valid: torch.Tensor   # (F, P) bool
     rd: torch.Tensor      # (F, P, 3) ray directions
+    rq: Optional[torch.Tensor]  # (F, P) per-ray query radius, or None
     D: torch.Tensor       # (F, P, S*k) index distances
     I: torch.Tensor       # (F, P, S*k) int32 neighbor ids
     nn: torch.Tensor      # (F, P, S) int32 in-radius counts
 
 
 @torch.no_grad()
-def _build_pool(map_pos, grid, kf_color, kf_depth, kf_c2w, draw,
+def _build_pool(map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq, draw,
                 opts: MapperOptions, ropts: RenderOptions,
                 P: int) -> _NeighborPool:
     """Sample the ray pool and run the k-NN once over all its samples (one
-    kernel launch on the card)."""
+    kernel launch on the card), with the per-ray radii of kf_rq if given."""
     F = kf_color.shape[0]
     S, k = ropts.n_surface, ropts.nn_num
-    ro, rd, d, c, valid = _window_rays(draw, kf_color, kf_depth, kf_c2w,
-                                       opts, P)
+    ro, rd, d, c, valid, rq = _window_rays(draw, kf_color, kf_depth, kf_c2w,
+                                           kf_rq, opts, P)
     dn = d.reshape(-1)
     vn = valid.reshape(-1)
     med = masked_median(dn, vn)
@@ -207,11 +247,12 @@ def _build_pool(map_pos, grid, kf_color, kf_depth, kf_c2w, draw,
                        ropts.near_end).reshape(F, P, S)
     pts = ro[..., None, :] + rd[..., None, :] * z[..., None]
     N = F * P * S
-    D, I, nn = knn.query_chunked(grid, map_pos, pts.reshape(N, 3), k,
-                                 ropts.radius_query)
+    rq_s = (ropts.radius_query if rq is None
+            else torch.repeat_interleave(rq.reshape(-1), S))
+    D, I, nn = knn.query_chunked(grid, map_pos, pts.reshape(N, 3), k, rq_s)
     return _NeighborPool(pts=pts, z_vals=z, d=d, c=c, valid=valid, rd=rd,
-                         D=D.reshape(F, P, S * k), I=I.reshape(F, P, S * k),
-                         nn=nn.reshape(F, P, S))
+                         rq=rq, D=D.reshape(F, P, S * k),
+                         I=I.reshape(F, P, S * k), nn=nn.reshape(F, P, S))
 
 
 def _map_loss_pool(dec, feats, pool: _NeighborPool, map_pos, draw, stage,
@@ -234,6 +275,8 @@ def _map_loss_pool(dec, feats, pool: _NeighborPool, map_pos, draw, stage,
     D_idx = take(pool.D).reshape(-1, k)
     I = take(pool.I).reshape(-1, k)
     nn = take(pool.nn).reshape(-1)
+    rq = (ropts.radius_query if pool.rq is None
+          else torch.repeat_interleave(take(pool.rq), S))
     views_d = None
     if ropts.use_view_direction:
         views_d = torch.repeat_interleave(take(pool.rd), S, dim=0)
@@ -244,8 +287,7 @@ def _map_loss_pool(dec, feats, pool: _NeighborPool, map_pos, draw, stage,
 
     both = gather_featpos(feats, map_pos, I)
     occ, rgb, has_neighbors = decode_neighbors(
-        dec, pts, draw, ropts, stage, D_idx, both, nn, ropts.radius_query,
-        views_d=views_d)
+        dec, pts, draw, ropts, stage, D_idx, both, nn, rq, views_d=views_d)
     R = F * pix_per_frame
     valid_ray = torch.sum(has_neighbors.reshape(R, S), dim=-1) >= (S // 2 + 1)
     depth, _var, color, _ = composite(
@@ -258,14 +300,17 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
                        feat_mask, map_pos, grid, kf_color, kf_depth, kf_c2w,
                        draw, n_geo_iters: int, n_col_iters: int,
                        lrs_geo, lrs_col, opts: MapperOptions,
-                       ropts: RenderOptions, pix_per_frame: int):
+                       ropts: RenderOptions, pix_per_frame: int,
+                       kf_rq=None):
     """Run a chunk of the geometry -> color mapping optimization.
 
     dec: Decoders (updated in place); feat: (cap, 2c) packed features;
     adam_state: ops.adam.AdamState over [decoder params..., feat] (None to
     start fresh); dec_mask: {param name: trainable}; feat_mask: (cap,) bool
     frustum-selected rows; lrs_geo/lrs_col: [decoders_lr, geometry_lr,
-    color_lr]. Returns (feat, adam_state, (geo_loss, col_loss, n_rays)).
+    color_lr]; kf_rq: the window frames' (F, H, W) query-radius maps (the
+    dynamic radius), or None for ropts.radius_query. Returns (feat,
+    adam_state, (geo_loss, col_loss, n_rays)).
     """
     names = [n for n, _ in dec.named_parameters()]
     params = [p for _, p in dec.named_parameters()]
@@ -277,8 +322,9 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
     use_pool = opts.pixel_pool_factor > 0 and not ropts.sample_near_pcl
     pool = None
     if use_pool:
-        pool = _build_pool(map_pos, grid, kf_color, kf_depth, kf_c2w, draw,
-                           opts, ropts, opts.pixel_pool_factor * pix_per_frame)
+        pool = _build_pool(map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq,
+                           draw, opts, ropts,
+                           opts.pixel_pool_factor * pix_per_frame)
     aux = (torch.zeros((), device=feat.device),) * 3
     for stage, n_iters, lrs in (("geometry", n_geo_iters, lrs_geo),
                                 ("color", n_col_iters, lrs_col)):
@@ -294,8 +340,8 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
                                            stage, opts, ropts, pix_per_frame)
             else:
                 loss, aux = _map_loss(dec, feat_v, map_pos, grid, kf_color,
-                                      kf_depth, kf_c2w, draw, stage, opts,
-                                      ropts, pix_per_frame)
+                                      kf_depth, kf_c2w, kf_rq, draw, stage,
+                                      opts, ropts, pix_per_frame)
             grads = torch.autograd.grad(loss, params + [feat_v],
                                         allow_unused=True)
             grads = [g if (on and g is not None) else None

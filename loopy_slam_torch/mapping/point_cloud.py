@@ -3,9 +3,10 @@
 Port of loopy_slam_tpu/mapping/point_cloud.py. The map is a set of
 fixed-capacity device tensors plus the spatial-hash index (ops/knn.py).
 Insertion gates candidate surface points on having no neighbour within
-radius_add and on every spawned point's hash row having a free slot; each
-surviving location spawns N_add points stratified along its ray with
-N(0, 0.1) features. The sensor-space input cloud (final PLY export) is
+the add radius (radius_add, radius_min for color-gradient picks, or the
+per-pixel dynamic radius) and on every spawned point's hash row having a
+free slot; each surviving location spawns N_add points stratified along
+its ray with N(0, 0.1) features. The sensor-space input cloud (final PLY export) is
 accumulated in a parallel buffer. Counts stay on the device, so an
 insertion never waits for the host.
 """
@@ -124,10 +125,13 @@ def scatter_drop(buf: torch.Tensor, idx: torch.Tensor,
 
 
 def add_points(state: MapState, opts: MapOptions, draw,
-               rays_o, rays_d, gt_depth, gt_color, cand_valid
+               rays_o, rays_d, gt_depth, gt_color, cand_valid,
+               dynamic_r_add=None, is_pts_grad: bool = False
                ) -> Tuple[MapState, torch.Tensor]:
     """Masked point insertion. Returns (new_state, n_locations) with
-    n_locations a device scalar. Draws: the new features' standard
+    n_locations a device scalar. The gate radius is radius_add, or
+    radius_min for color-gradient picks (is_pts_grad); a per-candidate
+    (A,) dynamic_r_add overrides both. Draws: the new features' standard
     normals (A*N_add, 2c)."""
     dev = rays_o.device
     A = rays_o.shape[0]
@@ -136,8 +140,11 @@ def add_points(state: MapState, opts: MapOptions, draw,
     cand_valid = cand_valid & (gt_depth > 0)
     pts_gt = rays_o + rays_d * gt_depth[:, None]
 
+    r_add = opts.radius_min if is_pts_grad else opts.radius_add
+    if dynamic_r_add is not None:
+        r_add = dynamic_r_add
     _, _, nn_count = knn.query(state.grid, state.pos, pts_gt, opts.nn_num,
-                               opts.radius_add)
+                               r_add)
     gate0 = cand_valid & (nn_count == 0)
     M = state.grid.cell_data.shape[1]
 

@@ -15,9 +15,11 @@ knn_refresh. The loop never reads a device value on the host.
 Separate LRs: translation lr, quaternion lr*0.2.
 
 Random draws (ops/draws.py), in order. Cached path, per block: the pool's
-pixel rows (P,) then cols (P,); per iteration: the pool pick (pixels,),
-then the decode's geometry and color noise (pixels*S, c) each. Uncached
-path, per iteration: rows (pixels,), cols (pixels,), then the decode noise.
+pixel rows (P,) then cols (P,) -- or, with a pre-selected pixel pool (the
+color-gradient picks), one index into it (P,); per iteration: the pool
+pick (pixels,), then the decode's geometry and color noise (pixels*S, c)
+each. Uncached path, per iteration: rows (pixels,) and cols (pixels,), or
+one index into the pre-selected pool (pixels,); then the decode noise.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from ..ops.camera import c2w_from_tensor, c2w_to_4x4, rays_from_uv
 from ..ops.compositing import composite
 from ..ops.masked import masked_mean, masked_median
 from ..ops.sampling import (inside_mask_from_depth, sample_pixels,
-                            sample_rays, surface_z_vals)
+                            surface_z_vals)
 
 
 class TrackOptions(NamedTuple):
@@ -109,37 +111,59 @@ def _loss_from_render(d, c, inside, depth, var, color, opts: TrackOptions):
     return loss, (geo, col, torch.sum(mask))
 
 
+def _pick_pixels(draw, n, gt_color, gt_depth, sel_i, sel_j,
+                 opts: TrackOptions):
+    """n pixels drawn uniformly from the pre-selected pool (sel_i cols,
+    sel_j rows: the color-gradient picks), or from the frame inside the
+    ignored edges without a pool. Returns float (i, j) and their depth,
+    color and validity (depth > 0, and < 5 m with depth_limit)."""
+    if sel_i is not None:
+        pick = draw.randint((n,), 0, sel_i.shape[0])
+        ii, jj = sel_i[pick].long(), sel_j[pick].long()
+        i, j = ii.float(), jj.float()
+        d, c = gt_depth[jj, ii], gt_color[jj, ii]
+    else:
+        i, j, d, c = sample_pixels(
+            draw, opts.ignore_edge_H, opts.H - opts.ignore_edge_H,
+            opts.ignore_edge_W, opts.W - opts.ignore_edge_W, n, gt_depth,
+            gt_color)
+    valid = d > 0
+    if opts.depth_limit:
+        valid = valid & (d < 5.0)
+    return i, j, d, c, valid
+
+
 def tracking_loss(cam7, dec, map_pos, grid, feats, gt_color, gt_depth, draw,
-                  opts: TrackOptions, ropts: RenderOptions):
-    """Sample pixels, render at pose cam7, compute the tracking loss."""
+                  opts: TrackOptions, ropts: RenderOptions, sel_i=None,
+                  sel_j=None, r_query=None):
+    """Sample pixels (from the pool sel_i/sel_j if given), render at pose
+    cam7 with the (H, W) query-radius map r_query if given, compute the
+    tracking loss."""
     c2w = c2w_from_tensor(cam7)
-    rays_o, rays_d, d, c, valid, ii, jj = sample_rays(
-        draw, opts.ignore_edge_H, opts.H - opts.ignore_edge_H,
-        opts.ignore_edge_W, opts.W - opts.ignore_edge_W,
-        opts.pixels, c2w, gt_depth, gt_color,
-        opts.fx, opts.fy, opts.cx, opts.cy,
-        depth_limit=5.0 if opts.depth_limit else None)
+    i, j, d, c, valid = _pick_pixels(draw, opts.pixels, gt_color, gt_depth,
+                                     sel_i, sel_j, opts)
+    rays_o, rays_d = rays_from_uv(i, j, c2w, opts.fx, opts.fy, opts.cx,
+                                  opts.cy)
+    rq = None if r_query is None else r_query[j.long(), i.long()]
     inside = inside_mask_from_depth(d, valid) & valid
     depth, var, color, _ = render_batch_ray(
         dec, map_pos, grid, feats, rays_o, rays_d, d, inside, draw, ropts,
-        "color")
+        "color", r_query=rq)
     return _loss_from_render(d, c, inside, depth, var, color, opts)
 
 
 def _build_track_cache(cam7, map_pos, grid, feats, gt_color, gt_depth, draw,
-                       opts: TrackOptions, ropts: RenderOptions):
+                       opts: TrackOptions, ropts: RenderOptions, sel_i=None,
+                       sel_j=None, r_query=None):
     """Per-block tracking pool: pool_factor*pixels rays with z-vals,
     neighbour distances/counts and gathered [features || position] rows,
-    computed once at the block-start pose."""
+    computed once at the block-start pose (and the rays' query radii when
+    r_query is given)."""
     P = opts.pixels * opts.pool_factor
     c2w = c2w_from_tensor(cam7)
-    i, j, d, c = sample_pixels(
-        draw, opts.ignore_edge_H, opts.H - opts.ignore_edge_H,
-        opts.ignore_edge_W, opts.W - opts.ignore_edge_W, P, gt_depth,
-        gt_color)
-    valid = d > 0
-    if opts.depth_limit:
-        valid = valid & (d < 5.0)
+    i, j, d, c, valid = _pick_pixels(draw, P, gt_color, gt_depth, sel_i,
+                                     sel_j, opts)
+    rq = None if r_query is None else r_query[j.long(), i.long()]
     inside = inside_mask_from_depth(d, valid) & valid
     S = ropts.n_surface
     z = surface_z_vals(d, inside, S, ropts.near_end_surface,
@@ -148,13 +172,15 @@ def _build_track_cache(cam7, map_pos, grid, feats, gt_color, gt_depth, draw,
                                   opts.cx, opts.cy)
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
            ).reshape(-1, 3)
+    rq_s = (ropts.radius_query if rq is None
+            else torch.repeat_interleave(rq, S))
     D, I, nn = knn.query_chunked(grid, map_pos, pts.detach(), ropts.nn_num,
-                                 ropts.radius_query)
+                                 rq_s)
     both = gather_featpos(feats, map_pos, I)
     k = ropts.nn_num
     return {"i": i, "j": j, "d": d, "c": c, "inside": inside, "z": z,
-            "D": D.reshape(P, S * k), "both": both.reshape(P, S * k, -1),
-            "nn": nn.reshape(P, S)}
+            "rq": rq, "D": D.reshape(P, S * k),
+            "both": both.reshape(P, S * k, -1), "nn": nn.reshape(P, S)}
 
 
 def tracking_loss_cached(cam7, dec, cache, draw, opts: TrackOptions,
@@ -181,9 +207,10 @@ def tracking_loss_cached(cam7, dec, cache, draw, opts: TrackOptions,
            ).reshape(-1, 3)
     views_d = (torch.repeat_interleave(rays_d, S, dim=0)
                if ropts.use_view_direction else None)
+    rq = (ropts.radius_query if cache["rq"] is None
+          else torch.repeat_interleave(take(cache["rq"]), S))
     occ, rgb, _has = decode_neighbors(
-        dec, pts, draw, ropts, "color", D_idx, both, nn, ropts.radius_query,
-        views_d=views_d)
+        dec, pts, draw, ropts, "color", D_idx, both, nn, rq, views_d=views_d)
     depth, var, color, _ = composite(
         rgb.reshape(R, S, 3), occ.reshape(R, S), z, ropts.sigmoid_coef)
     depth = torch.where(d > 0, depth, torch.zeros((), device=d.device))
@@ -238,9 +265,13 @@ def warmup_blocks(iters: int, refresh: int) -> List[int]:
 
 def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
                       cam7_init, draw, opts: TrackOptions,
-                      ropts: RenderOptions, health=None):
-    """Optimize the camera pose for one frame. Returns (best_cam7,
-    best_c2w44, first_loss, best_loss, health'), all device tensors."""
+                      ropts: RenderOptions, health=None, sel_i=None,
+                      sel_j=None, r_query=None):
+    """Optimize the camera pose for one frame. sel_i/sel_j: a pool of
+    pre-selected pixels (cols, rows; the color-gradient picks) to draw
+    from instead of the whole frame; r_query: the frame's (H, W) query
+    radius map (the dynamic radius). Returns (best_cam7, best_c2w44,
+    first_loss, best_loss, health'), all device tensors."""
     dev = cam7_init.device
     lr_cam = _lr_vector(opts, dev)
     cam = cam7_init.detach().clone()
@@ -271,7 +302,7 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
             with torch.no_grad():
                 cache = _build_track_cache(
                     cam, map_pos, grid, feats, gt_color, gt_depth, draw,
-                    opts, ropts)
+                    opts, ropts, sel_i, sel_j, r_query)
             for _ in range(blk_len):
                 loss = step(lambda c7: tracking_loss_cached(
                     c7, dec, cache, draw, opts, ropts))
@@ -282,7 +313,7 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
         for _ in range(opts.iters):
             loss = step(lambda c7: tracking_loss(
                 c7, dec, map_pos, grid, feats, gt_color, gt_depth, draw,
-                opts, ropts))
+                opts, ropts, sel_i, sel_j, r_query))
             if n_done == 0:
                 first_loss = loss
             n_done += 1

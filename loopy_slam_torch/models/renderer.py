@@ -97,10 +97,12 @@ def gather_featpos(feats, map_pos, I):
 
 
 def eval_points(dec, map_pos, grid, feats, pts, draw, opts: RenderOptions,
-                stage: str, views_d=None):
-    """Decode occupancy (and color) at sample positions (N, 3). Returns
-    (occ_logits (N,), rgb (N,3), has_neighbors (N,))."""
-    rq = opts.radius_query
+                stage: str, views_d=None, r_query=None):
+    """Decode occupancy (and color) at sample positions (N, 3) with the
+    query radius r_query, a (N,) tensor of per-sample radii or None for
+    opts.radius_query. Returns (occ_logits (N,), rgb (N,3),
+    has_neighbors (N,))."""
+    rq = opts.radius_query if r_query is None else r_query
     D_idx, I, nn_count = knn.query(grid, map_pos, pts.detach(), opts.nn_num,
                                    rq)
     both = gather_featpos(feats, map_pos, I)
@@ -169,11 +171,13 @@ def soft_clamp_logits(x):
 
 
 def render_batch_ray(dec, map_pos, grid, feats, rays_o, rays_d, gt_depth,
-                     ray_valid, draw, opts: RenderOptions, stage: str):
-    """Render a fixed-size batch of rays. Returns (depth, depth_var, color,
-    valid_ray_mask), each (R, ...). The sample-near-pcl z-vals and the
-    per-ray query radius of the reference are not in this slice (see
-    LoopySLAM's config check)."""
+                     ray_valid, draw, opts: RenderOptions, stage: str,
+                     r_query=None):
+    """Render a fixed-size batch of rays. `r_query` is a per-ray (R,)
+    query radius (the dynamic radius), repeated once per sample, or None
+    for opts.radius_query. Returns (depth, depth_var, color,
+    valid_ray_mask), each (R, ...). The sample-near-pcl z-vals of the
+    reference are not ported (see LoopySLAM's config check)."""
     if opts.sample_near_pcl:
         raise NotImplementedError(
             "rendering.sample_near_pcl is not ported yet (ROADMAP.md "
@@ -186,8 +190,12 @@ def render_batch_ray(dec, map_pos, grid, feats, rays_o, rays_d, gt_depth,
     views_d = None
     if opts.use_view_direction:
         views_d = torch.repeat_interleave(rays_d, S, dim=0)
+    rq = None
+    if r_query is not None:
+        rq = torch.repeat_interleave(r_query.reshape(-1), S, dim=0)
     occ, rgb, has_neighbors = eval_points(
-        dec, map_pos, grid, feats, pts, draw, opts, stage, views_d=views_d)
+        dec, map_pos, grid, feats, pts, draw, opts, stage, views_d=views_d,
+        r_query=rq)
     valid_ray = torch.sum(has_neighbors.reshape(R, S), dim=-1) >= (S // 2 + 1)
     depth, depth_var, color, _ = composite(
         rgb.reshape(R, S, 3), occ.reshape(R, S), z_vals, opts.sigmoid_coef)

@@ -33,7 +33,8 @@ def main(argv=None):
     metrics merged in (or, if the evaluation failed, its error under
     "eval_error"), so callers can gate on them; besides, the session's
     points, health-gate rejects, segments, correction rounds, its phase
-    times (`timings_s`, `eval_timings_s`) and, on a resumed run, `resume`
+    times (`timings_s`, `eval_timings_s`), the color-gradient picks'
+    counts (`grad_stats`) and, on a resumed run, `resume`
     (the checkpoint, the first frame run and the restored map's points)."""
     import numpy as np
     import torch
@@ -91,7 +92,8 @@ def main(argv=None):
                      health_rejects=int(slam.track_health[1].item()),
                      segments=len(slam.fm.fragments),
                      correction_rounds=len(slam.lc.rounds),
-                     timings_s=dict(slam.timings))
+                     timings_s=dict(slam.timings),
+                     grad_stats=dict(slam.grad_stats))
         if resumed is not None:
             stats["resume"] = resumed
         if not cfg.get("stop") and (cfg["rendering"]["eval_img"]

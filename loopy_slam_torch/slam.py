@@ -19,6 +19,13 @@ moves segments, trajectory and the device map rigidly. With
 mapping.color_refine, the last frame is mapped again over the merged
 global map of all segments, with the segment anchors as the window.
 
+With use_dynamic_radius, each frame's color gradient (on the host) sets
+per-pixel add and query radii: insertion gates, tracking, mapping (each
+keyframe keeps its query-radius map) and renders use them. With
+tracking.sample_with_color_grad the tracker draws its pixels from the top
+color-gradient pixels, and mapping.pixels_based_on_color_grad adds points
+at such pixels each mapped frame.
+
 After the run: `render_img` renders full frames through the map,
 `final_eval` scores renders and a fused mesh, and `restore` continues a
 run from a checkpoint written by `finalize` (by either package). With
@@ -51,6 +58,7 @@ from .models.renderer import RenderOptions, render_batch_ray
 from .ops import knn, tsdf
 from .ops.orb import extract_orb
 from .ops.camera import get_rays, tensor_from_c2w
+from .ops.image import dynamic_radius_maps, select_pixels_by_grad
 from .ops.draws import TorchDraws
 from .tools.cull_mesh import cull_mesh
 from .tools.eval_images import evaluate_renders
@@ -86,7 +94,8 @@ def update_cam(cfg) -> Dict[str, float]:
 def check_slice(cfg) -> None:
     """Raise NotImplementedError for any configured feature the port does
     not have yet, naming its ROADMAP.md item. Submaps, loop closure and
-    color refinement (item 10) and the visualizer (item 14) are in."""
+    color refinement (item 10), the visualizer (item 14) and the dynamic
+    radius with the color-gradient picks (item 15) are in."""
     m, t = cfg["mapping"], cfg["tracking"]
     seg = m["segment_strategy"]
     if seg not in ("rot_trans", "fixed", "none"):
@@ -97,10 +106,6 @@ def check_slice(cfg) -> None:
         (t["visual_odometer"], "tracking.visual_odometer", 11),
         (int(par.get("n_devices", 0)) > 1 or par.get("map_shard", False),
          "parallel.* (multi-device)", 13),
-        (cfg["use_dynamic_radius"], "use_dynamic_radius", 15),
-        (t["sample_with_color_grad"], "tracking.sample_with_color_grad", 15),
-        (m["pixels_based_on_color_grad"] > 0,
-         "mapping.pixels_based_on_color_grad > 0", 15),
         (cfg["model"]["encode_exposure"], "model.encode_exposure", 16),
         (m["BA"], "mapping.BA", 17),
         (cfg["rendering"]["sample_near_pcl"], "rendering.sample_near_pcl", 18),
@@ -190,14 +195,22 @@ class LoopySLAM:
         self.keyframe_global_every = m["keyframe_global_every"]
         self.mapping_window_size = m["mapping_window_size"] * (
             2 if self.n_img > 4000 else 1)
+        # the current frame's (H, W) add and query radius maps on the
+        # device, with use_dynamic_radius (else None)
+        self.use_dynamic_radius = cfg["use_dynamic_radius"]
+        self.cur_r_add = self.cur_r_query = None
 
-        # keyframe pixels on the device, poses on the host
+        # keyframe pixels (and query-radius maps) on the device, poses on
+        # the host
         kf_cap = self.n_img // min(self.keyframe_every,
                                    self.keyframe_global_every) + 4
         self.kf_color = torch.zeros((kf_cap, self.H, self.W, 3),
                                     device=self.device)
         self.kf_depth = torch.zeros((kf_cap, self.H, self.W),
                                     device=self.device)
+        self.kf_rq = (torch.zeros((kf_cap, self.H, self.W),
+                                  device=self.device)
+                      if self.use_dynamic_radius else None)
         self.kf_slots_used = 0
         self.kf_slot_of_idx: Dict[int, int] = {}
         self.keyframe_list: List[int] = []
@@ -210,6 +223,10 @@ class LoopySLAM:
         self.track_health = torch.zeros(3, device=self.device)
         self._last_rejects = 0.0
         self.timings: Dict[str, List[float]] = {"track": [], "map": []}
+        # per tracked frame, the color-gradient pool's size before its
+        # resample; per mapped frame, the locations the gradient picks added
+        self.grad_stats: Dict[str, List[int]] = {"track_pool": [],
+                                                 "map_locations": []}
 
         # submaps + loop closure
         self.fm = FragmentManager(
@@ -301,11 +318,65 @@ class LoopySLAM:
         if self.verbose:
             print(f"Loaded pretrained geometry decoder from {found}")
 
+    def _dynamic_radius(self, color_np):
+        """The frame's (add, query) radius maps on the device, from its
+        color gradient on the host; (None, None) without
+        use_dynamic_radius."""
+        if not self.use_dynamic_radius:
+            return None, None
+        pc = self.cfg["pointcloud"]
+        r_add, r_query = dynamic_radius_maps(
+            color_np, pc["radius_add_max"], pc["radius_add_min"],
+            pc["radius_query_ratio"], pc["color_grad_threshold"])
+        return (torch.as_tensor(r_add, device=self.device),
+                torch.as_tensor(r_query, device=self.device))
+
+    def _track_pixel_pool(self, color_np, depth_np) -> Optional[np.ndarray]:
+        """The tracker's pool of color-gradient pixels (flat indices): the
+        top 15 x pixels gradient pixels inside the ignored edges with
+        depth, resampled with replacement to exactly 15 x pixels; None
+        when fewer than 16 qualify."""
+        t = self.cfg["tracking"]
+        topts = self.topts
+        flat, _ = select_pixels_by_grad(
+            topts.ignore_edge_H, self.H - topts.ignore_edge_H,
+            topts.ignore_edge_W, self.W - topts.ignore_edge_W,
+            t["pixels"], color_np, gt_depth=depth_np,
+            depth_limit=t["depth_limit"])
+        self.grad_stats["track_pool"].append(int(flat.size))
+        if flat.size < 16:
+            return None
+        # the reference resamples the pool to a fixed length (its compiled
+        # program's shape); the same numpy draws keep the port's picks
+        # comparable
+        pool_n = 15 * t["pixels"]
+        if flat.size != pool_n:
+            flat = self.nprng.choice(flat, pool_n, replace=True)
+        return flat
+
+    def _grad_insert_pixels(self, color_np) -> Optional[np.ndarray]:
+        """The mapper's color-gradient insertion pixels (flat indices):
+        pixels_based_on_color_grad of the top gradient pixels, drawn
+        without replacement (padded by repeats when fewer qualify); None
+        when none does."""
+        n = self.cfg["mapping"]["pixels_based_on_color_grad"]
+        flat, _ = select_pixels_by_grad(0, self.H, 0, self.W, n, color_np)
+        if not flat.size:
+            return None
+        pick = self.nprng.choice(flat.size, size=min(n, flat.size),
+                                 replace=False)
+        if pick.size < n:
+            pick = np.concatenate([pick, pick[:n - pick.size]])
+        return flat[pick]
+
     # ------------------------------------------------------------------
     # Tracking
     # ------------------------------------------------------------------
-    def track_frame(self, idx, color, depth) -> np.ndarray:
-        """Optimize the pose of frame idx; returns the 4x4 c2w estimate."""
+    def track_frame(self, idx, color, depth, color_np, depth_np
+                    ) -> np.ndarray:
+        """Optimize the pose of frame idx; returns the 4x4 c2w estimate.
+        color_np/depth_np: the frame on the host, for the color-gradient
+        pixel pool (tracking.sample_with_color_grad)."""
         t = self.cfg["tracking"]
         pre = self.estimate_c2w[idx - 1]
         if t["const_speed_assumption"] and idx >= 2:
@@ -314,11 +385,20 @@ class LoopySLAM:
         else:
             init_c2w = pre
         cam7 = torch.as_tensor(tensor_from_c2w(init_c2w), device=self.device)
+
+        sel_i = sel_j = None
+        if t["sample_with_color_grad"]:
+            flat = self._track_pixel_pool(color_np, depth_np)
+            if flat is not None:
+                flat_t = torch.as_tensor(flat, device=self.device)
+                sel_i, sel_j = flat_t % self.W, flat_t // self.W
+
         s = self.map_state
         (_, best_c2w44, first_loss, best_loss,
          self.track_health) = tracker_mod.track_frame(
             self.dec, s.pos, s.grid, s.feat, color, depth, cam7, self.draw,
-            self.topts, self.ropts_tracker, health=self.track_health)
+            self.topts, self.ropts_tracker, health=self.track_health,
+            sel_i=sel_i, sel_j=sel_j, r_query=self.cur_r_query)
         if self.verbose:
             print(f"idx:{idx}, re-rendering loss: "
                   f"{float(first_loss):.2f}->{float(best_loss):.2f}")
@@ -568,23 +648,30 @@ class LoopySLAM:
         self.kf_slot_of_idx[idx] = slot
         self.kf_color[slot] = color
         self.kf_depth[slot] = depth
+        if self.use_dynamic_radius:
+            self.kf_rq[slot] = self.cur_r_query
         self.kf_est_c2w[idx] = cur_c2w.copy()
         self.kf_gt_c2w[idx] = gt_c2w.copy()
 
     def _window(self, sources: List[Optional[int]], color, depth, cur_c2w):
         """Stack the optimization window; `sources` entries are keyframe
-        frame indices, or None for the current frame."""
-        kc = torch.stack([color if i is None
-                          else self.kf_color[self.kf_slot_of_idx[i]]
-                          for i in sources])
-        kd = torch.stack([depth if i is None
-                          else self.kf_depth[self.kf_slot_of_idx[i]]
-                          for i in sources])
+        frame indices, or None for the current frame. Returns color,
+        depth, poses and, with the dynamic radius, the query-radius maps
+        (else None)."""
+        def stack(ring, cur):
+            return torch.stack([cur if i is None
+                                else ring[self.kf_slot_of_idx[i]]
+                                for i in sources])
+
+        kc = stack(self.kf_color, color)
+        kd = stack(self.kf_depth, depth)
+        krq = (stack(self.kf_rq, self.cur_r_query)
+               if self.use_dynamic_radius else None)
         poses = [cur_c2w if i is None else self.kf_est_c2w[i]
                  for i in sources]
         kp = torch.as_tensor(np.stack(poses).astype(np.float32),
                              device=self.device)
-        return kc, kd, kp
+        return kc, kd, kp, krq
 
     def map_frame(self, idx, color, depth, gt_c2w, depth_np, color_np=None,
                   color_refine: bool = False):
@@ -633,20 +720,36 @@ class LoopySLAM:
                 if self.prev_mapped_idx is not None else cur_c2w,
                 device=self.device)
             add = mapper_mod.add_points_from_frame
+            dra = self.cur_r_add
             if m["filter_before_add_points"] and not init:
                 self.map_state, n1 = add(self.map_state, color, depth, cur_t,
                                          prev_t, self.draw, self.mopts_map,
-                                         self.mopts, add_n, overlap=False)
+                                         self.mopts, add_n, overlap=False,
+                                         dynamic_r_add=dra)
                 self.map_state, n2 = add(self.map_state, color, depth, cur_t,
                                          prev_t, self.draw, self.mopts_map,
-                                         self.mopts, 1000, overlap=True)
+                                         self.mopts, 1000, overlap=True,
+                                         dynamic_r_add=dra)
                 n_add = n1 + n2
             else:
                 self.map_state, n_add = add(self.map_state, color, depth,
                                             cur_t, prev_t, self.draw,
                                             self.mopts_map, self.mopts,
-                                            add_n, overlap=None)
-            frame_pts_add = int(n_add)  # the one host fetch of the insertion
+                                            add_n, overlap=None,
+                                            dynamic_r_add=dra)
+            n_grad = torch.zeros_like(n_add)
+            use_grad = m["pixels_based_on_color_grad"] > 0
+            flat = self._grad_insert_pixels(color_np) if use_grad else None
+            if flat is not None:
+                self.map_state, n_grad = mapper_mod.add_points_at_pixels(
+                    self.map_state, color, depth, cur_t,
+                    torch.as_tensor(flat, device=self.device), self.draw,
+                    self.mopts_map, self.mopts, dynamic_r_add=dra)
+            # the one host fetch of the insertion
+            frame_pts_add, n_grad = torch.stack(
+                [n_add + n_grad, n_grad]).tolist()
+            if use_grad:
+                self.grad_stats["map_locations"].append(n_grad)
             self._count_host += frame_pts_add * self.mopts_map.N_add
             if self.verbose:
                 print(f"{frame_pts_add} locations to add points "
@@ -680,6 +783,10 @@ class LoopySLAM:
             kc = torch.cat([up([f.gt_color for f in frags]), color[None]])
             kd = torch.cat([up([f.gt_depth for f in frags]), depth[None]])
             kp = up([f.anchor_est for f in frags] + [cur_c2w])
+            # the reference gives every window frame the CURRENT frame's
+            # query-radius map here, not each anchor's own: copied as it is
+            krq = (self.cur_r_query[None].expand(kc.shape[0], -1, -1)
+                   if self.use_dynamic_radius else None)
             pix_per_frame = max(m["pixels"] // 10, 1)
         else:
             k = self.mapping_window_size - 2
@@ -705,7 +812,7 @@ class LoopySLAM:
             pads = [base[i % len(base)] for i in range(n_pad)]
             window = list(window) + pads + [None]
             pix_per_frame = max(m["pixels"] // len(window), 1)
-            kc, kd, kp = self._window(window, color, depth, cur_c2w)
+            kc, kd, kp, krq = self._window(window, color, depth, cur_c2w)
 
         # ---------------- iteration schedule ----------------
         num = m["iters_first"] if init else m["iters"]
@@ -747,7 +854,7 @@ class LoopySLAM:
                     self.dec, feat, st, dec_mask, feat_mask,
                     self.map_state.pos, self.map_state.grid, kc, kd, kp,
                     self.draw, g, c, lrs_geo, lrs_col, self.mopts,
-                    self.ropts_mapper, pix_per_frame)
+                    self.ropts_mapper, pix_per_frame, kf_rq=krq)
                 done_geo += g
                 done_col += c
         self.map_state = self.map_state._replace(feat=feat)
@@ -775,10 +882,12 @@ class LoopySLAM:
     # Full-frame rendering (evaluation and visualization)
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def render_img(self, c2w, gt_depth, chunk: int = 4096):
+    def render_img(self, c2w, gt_depth, chunk: int = 4096, r_query_map=None):
         """Full-frame render at pose c2w (4x4), in the color stage, guided
-        by gt_depth (H, W) as the mapper's samples are. Returns numpy
-        (depth (H, W), color (H, W, 3)).
+        by gt_depth (H, W) as the mapper's samples are, with the (H, W)
+        query-radius map r_query_map (a device tensor or numpy; None for
+        pointcloud.radius_query). Returns numpy (depth (H, W),
+        color (H, W, 3)).
 
         The frame goes through the renderer in chunks of `chunk` rays, each
         one k-NN launch over chunk * N_surface samples; the last chunk is
@@ -793,21 +902,27 @@ class LoopySLAM:
         rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
         gd = torch.as_tensor(np.asarray(gt_depth, np.float32),
                              device=dev).reshape(-1)
+        rq = (None if r_query_map is None else torch.as_tensor(
+            r_query_map, dtype=torch.float32, device=dev).reshape(-1))
         n = rays_o.shape[0]
         s = self.map_state
         depths, colors = [], []
         for i in range(0, n, chunk):
             sl = slice(i, i + chunk)
             ro, rd, d = rays_o[sl], rays_d[sl], gd[sl]
+            rqc = None if rq is None else rq[sl]
             take = ro.shape[0]
             pad = chunk - take
             if pad:
                 ro = torch.cat([ro, torch.zeros((pad, 3), device=dev)])
                 rd = torch.cat([rd, torch.ones((pad, 3), device=dev)])
                 d = torch.cat([d, torch.zeros((pad,), device=dev)])
+                if rqc is not None:
+                    rqc = torch.cat([rqc, torch.full((pad,), 1e-3,
+                                                     device=dev)])
             dep, _, col, _ = render_batch_ray(
                 self.dec, s.pos, s.grid, s.feat, ro, rd, d, d > 0, self.draw,
-                self.ropts_mapper, "color")
+                self.ropts_mapper, "color", r_query=rqc)
             depths.append(dep[:take])
             colors.append(col[:take])
         depth = torch.cat(depths).reshape(self.H, self.W)
@@ -924,6 +1039,7 @@ class LoopySLAM:
         for kf_idx in kf_order:
             _, color_np, depth_np, _ = self.dataset[kf_idx]
             color, depth = _upload_frame(color_np, depth_np, dev)
+            self.cur_r_add, self.cur_r_query = self._dynamic_radius(color_np)
             self._add_keyframe(kf_idx, color, depth, self.kf_est_c2w[kf_idx],
                                self.kf_gt_c2w.get(kf_idx,
                                                   self.kf_est_c2w[kf_idx]))
@@ -958,7 +1074,8 @@ class LoopySLAM:
             return
         t0 = time.perf_counter()
         if vis.vis(idx, iters - 1, depth_np, color_np,
-                   self.estimate_c2w[idx]) is not None:
+                   self.estimate_c2w[idx],
+                   r_query_map=self.cur_r_query) is not None:
             self.timings.setdefault("vis", []).append(
                 time.perf_counter() - t0)
 
@@ -1035,6 +1152,8 @@ class LoopySLAM:
                     while len(self._seg_frames) > 600:
                         del self._seg_frames[min(self._seg_frames)]
                 self.gt_c2w[idx] = gt_c2w
+                self.cur_r_add, self.cur_r_query = self._dynamic_radius(
+                    color_np)
                 self.timings.setdefault("upload", []).append(
                     time.perf_counter() - t_f)
 
@@ -1042,8 +1161,8 @@ class LoopySLAM:
                     self.estimate_c2w[idx] = gt_c2w
                 else:
                     t0 = time.perf_counter()
-                    self.estimate_c2w[idx] = self.track_frame(idx, color,
-                                                              depth)
+                    self.estimate_c2w[idx] = self.track_frame(
+                        idx, color, depth, color_np, depth_np)
                     self.timings["track"].append(time.perf_counter() - t0)
                     self._vis("tracking", idx, self.topts.iters, depth_np,
                               color_np)
@@ -1130,7 +1249,9 @@ class LoopySLAM:
                 color, depth = np.load(cpath), np.load(dpath)
                 n_reused += 1
             else:
-                depth, color = self.render_img(self.estimate_c2w[idx], gd)
+                depth, color = self.render_img(
+                    self.estimate_c2w[idx], gd,
+                    r_query_map=self._dynamic_radius(gc)[1])
                 if save_renders:
                     np.save(cpath, color)
                     np.save(dpath, depth)

@@ -1,20 +1,38 @@
-"""RGBD datasets for the port: the `BaseDataset` skeleton and the
-procedural `Synthetic` room (numpy only), copied from
-loopy_slam_tpu/utils/datasets.py.
+"""RGBD datasets for the port (numpy only, no cv2): the file path of
+`BaseDataset`, the `TUM_RGBD` loader and the procedural `Synthetic` room,
+copied from loopy_slam_tpu/utils/datasets.py.
 
 `__getitem__` -> (index, color float HxWx3 in [0,1] RGB, depth float HxW in
-meters, gt c2w 4x4 float32), numpy arrays; `Synthetic.gt_mesh` is the
-room's analytic ground-truth mesh for the reconstruction metrics. The
-file-based formats (Replica, ScanNet, TUM-RGBD, Azure, CoFusion) and their
-cv2 decoding are not ported yet (ROADMAP.md Queue 1 item 11):
-`get_dataset` raises for them.
+meters, gt c2w 4x4 float32), numpy arrays. Files are read by the port's
+own PNG reader (utils/imageio.py); color is undistorted (depth is not)
+with the camera's `distortion`, then both are cropped by `crop_edge`.
+Every loader flips the Y and Z columns of c2w (OpenGL convention).
+`Synthetic.gt_mesh` is the room's analytic ground-truth mesh for the
+reconstruction metrics. Not ported yet (ROADMAP.md Queue 1 item 11): the
+JPEG color of Replica, ScanNet and Azure, CoFusion's EXR depth, the
+`crop_size` resize and color of another size than depth; the loader
+raises for each.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .imageio import read_png, remap_linear, undistort_map
+
+
+def as_intrinsics_matrix(intr) -> np.ndarray:
+    K = np.eye(3)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = intr
+    return K
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported to loopy_slam_torch yet "
+                              "(ROADMAP.md Queue 1 item 11)")
 
 
 class BaseDataset:
@@ -25,14 +43,141 @@ class BaseDataset:
         self.H, self.W = cam["H"], cam["W"]
         self.fx, self.fy = cam["fx"], cam["fy"]
         self.cx, self.cy = cam["cx"], cam["cy"]
+        self.distortion = (np.array(cam["distortion"])
+                           if "distortion" in cam else None)
         self.crop_size = cam.get("crop_size")
         self.crop_edge = cam["crop_edge"]
         self.input_folder = input_folder or cfg["data"]["input_folder"]
+        self.color_paths: List[str] = []
+        self.depth_paths: List[str] = []
         self.poses: List[np.ndarray] = []
         self.n_img = 0
+        self._undistort_taps = None  # remap taps of the camera, made once
 
     def __len__(self):
         return self.n_img
+
+    def _read_depth(self, path: str) -> np.ndarray:
+        if path.endswith(".png"):
+            d = read_png(path)
+            if d.ndim != 2:
+                raise ValueError(f"{path}: depth PNG is not single-channel")
+            return d.astype(np.float32) / self.png_depth_scale
+        if path.endswith(".exr"):
+            _not_ported("EXR depth (CoFusion)")
+        raise ValueError(f"unsupported depth format: {path}")
+
+    def _read_color(self, path: str) -> np.ndarray:
+        """uint8 (H, W, 3) RGB, as cv2.imread's color mode then BGR->RGB
+        gives it: gray is replicated, alpha dropped."""
+        if not path.endswith(".png"):
+            _not_ported(f"color files other than PNG ({path})")
+        c = read_png(path)
+        if c.dtype != np.uint8:
+            raise ValueError(f"{path}: 16-bit color is not supported")
+        if c.ndim == 2:
+            return np.repeat(c[..., None], 3, axis=2)
+        return c[..., :3]
+
+    def __getitem__(self, index: int):
+        if self.crop_size is not None:
+            _not_ported("cam.crop_size (the color/depth resize)")
+        color = self._read_color(self.color_paths[index])
+        depth = self._read_depth(self.depth_paths[index])
+        if color.shape[:2] != depth.shape:
+            _not_ported(f"color of another size than depth "
+                        f"({color.shape[:2]} vs {depth.shape})")
+        if self.distortion is not None:
+            taps = self._undistort_taps
+            if taps is None or taps[0].shape[1] != depth.size:
+                K = as_intrinsics_matrix([self.fx, self.fy, self.cx,
+                                          self.cy])
+                taps = undistort_map(K, self.distortion, *depth.shape)
+                self._undistort_taps = taps
+            color = remap_linear(color, taps)
+        color = color.astype(np.float32) / 255.0
+        e = self.crop_edge
+        if e > 0:
+            color = color[e:-e, e:-e]
+            depth = depth[e:-e, e:-e]
+        return index, color, depth, self.poses[index].astype(np.float32)
+
+
+def _flip_yz(c2w: np.ndarray) -> np.ndarray:
+    c2w = c2w.copy()
+    c2w[:3, 1] *= -1
+    c2w[:3, 2] *= -1
+    return c2w
+
+
+class TUM_RGBD(BaseDataset):
+    """A TUM RGB-D sequence folder: rgb.txt, depth.txt and groundtruth.txt
+    (or pose.txt); color and depth frames associated by timestamp (within
+    0.08 s), thinned to 32 frames a second, poses relative to the first
+    frame."""
+
+    def __init__(self, cfg, input_folder=None):
+        super().__init__(cfg, input_folder)
+        self.color_paths, self.depth_paths, self.poses = self._load(
+            self.input_folder, frame_rate=32)
+        self.n_img = len(self.color_paths)
+
+    @staticmethod
+    def _parse_list(path, skiprows=0):
+        import warnings
+
+        with warnings.catch_warnings():
+            # numpy 2 warns on the files' leading comment lines
+            warnings.simplefilter("ignore", UserWarning)
+            return np.loadtxt(path, delimiter=" ", dtype=np.str_,
+                              skiprows=skiprows)
+
+    @staticmethod
+    def _associate(t_img, t_depth, t_pose, max_dt=0.08):
+        out = []
+        for i, t in enumerate(t_img):
+            j = np.argmin(np.abs(t_depth - t))
+            k = np.argmin(np.abs(t_pose - t))
+            if abs(t_depth[j] - t) < max_dt and abs(t_pose[k] - t) < max_dt:
+                out.append((i, j, k))
+        return out
+
+    def _load(self, datapath, frame_rate=-1):
+        from scipy.spatial.transform import Rotation
+
+        pose_file = os.path.join(datapath, "groundtruth.txt")
+        if not os.path.isfile(pose_file):
+            pose_file = os.path.join(datapath, "pose.txt")
+        image_data = self._parse_list(os.path.join(datapath, "rgb.txt"))
+        depth_data = self._parse_list(os.path.join(datapath, "depth.txt"))
+        pose_data = self._parse_list(pose_file, skiprows=1)
+        pose_vecs = pose_data[:, 1:].astype(np.float64)
+        t_img = image_data[:, 0].astype(np.float64)
+        t_depth = depth_data[:, 0].astype(np.float64)
+        t_pose = pose_data[:, 0].astype(np.float64)
+        assoc = self._associate(t_img, t_depth, t_pose)
+        indices = [0]
+        for i in range(1, len(assoc)):
+            t0 = t_img[assoc[indices[-1]][0]]
+            t1 = t_img[assoc[i][0]]
+            if t1 - t0 > 1.0 / frame_rate:
+                indices.append(i)
+        images, depths, poses = [], [], []
+        inv_pose = None
+        for ix in indices:
+            i, j, k = assoc[ix]
+            images.append(os.path.join(datapath, str(image_data[i, 1])))
+            depths.append(os.path.join(datapath, str(depth_data[j, 1])))
+            c2w = np.eye(4)
+            c2w[:3, :3] = Rotation.from_quat(pose_vecs[k][3:]).as_matrix()
+            c2w[:3, 3] = pose_vecs[k][:3]
+            if inv_pose is None:
+                inv_pose = np.linalg.inv(c2w)
+                c2w = np.eye(4)
+            else:
+                c2w = inv_pose @ c2w
+            poses.append(_flip_yz(c2w))
+        return images, depths, poses
 
 
 # ---------------------------------------------------------------------------
@@ -362,7 +507,7 @@ class Synthetic(BaseDataset):
         return np.concatenate(verts_all), np.concatenate(faces_all)
 
 
-dataset_dict = {"synthetic": Synthetic}
+dataset_dict = {"tumrgbd": TUM_RGBD, "synthetic": Synthetic}
 
 
 def get_dataset(cfg, input_folder: Optional[str] = None) -> BaseDataset:
@@ -370,8 +515,12 @@ def get_dataset(cfg, input_folder: Optional[str] = None) -> BaseDataset:
     if name not in dataset_dict:
         raise NotImplementedError(
             f"dataset {name!r} is not ported yet (ROADMAP.md Queue 1 item "
-            "11); the port runs the procedural 'synthetic' scene")
+            "11); the port runs 'tumrgbd' and the procedural 'synthetic' "
+            "scene")
     ds = dataset_dict[name](cfg, input_folder)
     if len(ds) == 0:
-        raise FileNotFoundError(f"dataset {name!r} has no frames")
+        raise FileNotFoundError(
+            f"dataset {name!r} found no frames under {ds.input_folder!r}: "
+            "set data.input_folder (or --input_folder) to the scene "
+            "directory")
     return ds

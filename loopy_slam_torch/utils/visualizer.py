@@ -13,17 +13,17 @@ residual 0..0.2 of it, the rgb residual 0..0.5) and the same gating
 matplotlib and saves a JPEG; the card's machine has no matplotlib (and no
 JPEG encoder), so the port tiles the panels in numpy, maps the scalar
 panels through a plasma-like colormap table, and writes a PNG with the
-standard library (zlib, struct). The `.png` name is the only difference
+port's own writer (utils/imageio.py). The `.png` name is the only difference
 in what is written; the panel titles of the figure are left out.
 """
 
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 
 import numpy as np
+
+from .imageio import write_png
 
 # plasma anchors (position, r, g, b), linearly interpolated to 256 entries
 _PLASMA_ANCHORS = np.array([
@@ -68,24 +68,6 @@ def six_panels(gt_depth, depth, gt_color, color) -> np.ndarray:
     return np.clip(np.rint(tiled * 255), 0, 255).astype(np.uint8)
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """8-bit RGB PNG of an (H, W, 3) uint8 array (no filtering)."""
-    H, W, _ = rgb.shape
-    raw = np.concatenate([np.zeros((H, 1), np.uint8),
-                          np.ascontiguousarray(rgb, np.uint8).reshape(H, -1)],
-                         1).tobytes()
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
-
-
 class Visualizer:
     def __init__(self, freq: int, vis_dir: str, slam, verbose=True):
         self.freq = max(int(freq), 1)
@@ -95,12 +77,15 @@ class Visualizer:
         os.makedirs(vis_dir, exist_ok=True)
 
     def vis(self, idx: int, iter_: int, gt_depth, gt_color, c2w,
-            freq_override: bool = False, save_rendered_image: bool = False):
-        """Render frame idx at c2w and write <idx>_<iter>.png; returns
+            r_query_map=None, freq_override: bool = False,
+            save_rendered_image: bool = False):
+        """Render frame idx at c2w (with the frame's query-radius map,
+        if the session has one) and write <idx>_<iter>.png; returns
         (depth, color), or None when the gate does not fire."""
         if not freq_override and (idx == 0 or idx % self.freq != 0):
             return None
-        depth, color = self.slam.render_img(c2w, gt_depth)
+        depth, color = self.slam.render_img(c2w, gt_depth,
+                                            r_query_map=r_query_map)
         path = os.path.join(self.vis_dir, f"{idx:05d}_{iter_:04d}.png")
         write_png(path, six_panels(gt_depth, depth, gt_color, color))
         if save_rendered_image:

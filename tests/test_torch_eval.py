@@ -190,7 +190,7 @@ def test_raster_build_failure_raises(monkeypatch):
     """No silent fallback: without a compiler the rasterizer raises."""
     from loopy_slam_torch.csrc import build
 
-    monkeypatch.setattr(build, "_raster_lib", None)
+    monkeypatch.setattr(build, "_host_libs", {})
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     with pytest.raises(FileNotFoundError, match="g\\+\\+"):
         traster.raster_mesh_depth(np.zeros((3, 3)), np.array([[0, 1, 2]]),
@@ -405,7 +405,7 @@ class _FakeSession:
     def __init__(self, depth, color):
         self.out, self.calls = (depth, color), 0
 
-    def render_img(self, c2w, gt_depth):
+    def render_img(self, c2w, gt_depth, r_query_map=None):
         self.calls += 1
         return self.out
 

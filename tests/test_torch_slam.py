@@ -126,7 +126,7 @@ def _slice_cfg(**over):
 
 
 # ROADMAP.md Queue 1 items the port has: their settings pass check_slice
-PORTED_ITEMS = {10, 14}
+PORTED_ITEMS = {10, 14, 15}
 
 
 @pytest.mark.parametrize("over,item", [
@@ -146,7 +146,8 @@ PORTED_ITEMS = {10, 14}
 def test_features_outside_the_slice_raise(over, item):
     """A feature of a ROADMAP item not yet ported raises, naming the item;
     the settings of ported items (submaps, loop closure and color
-    refinement: item 10; the visualizer: item 14) pass."""
+    refinement: item 10; the visualizer: item 14; the dynamic radius and
+    the color-gradient picks: item 15) pass."""
     cfg = _slice_cfg(use_dynamic_radius=False,
                      rendering={"sample_near_pcl": False})
     check_slice(cfg)  # the slice's own settings pass

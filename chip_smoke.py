@@ -18,9 +18,9 @@ Phases:
      --variants, also `variants`: the cold ms of each variant build;
   4. runs the slice-1 path: LoopySLAM on configs/Synthetic/room.yaml's
      values (segment_strategy none, color_refine off, visualizer off) for
-     8 frames (cut from 31, then 16, so that the whole script with the
-     TUM path stays near ten minutes on the card), with the kernels'
-     launch counts reset just
+     6 frames (cut from 31, then 16, then 8, then 6, so that the whole
+     script with the TUM, Replica and ScanNet paths stays near 1000 s on
+     the card), with the kernels' launch counts reset just
      before, and gates on launches > 0, ATE (aligned) <= 3 mm and no
      health-gate rejects;
   5. runs the segmented path: room.yaml as shipped (segment_strategy
@@ -37,13 +37,14 @@ Phases:
      color-refine pool over the merged map;
   6. runs the CLI path: `python -m loopy_slam_torch.run` (its `main`) on
      a YAML overlay of room.yaml as shipped that changes only the frame
-     count (31), the output and both vis_freq (15): first with --stop 15,
-     then with --resume in a fresh session, which runs frames 16-30, color
-     refinement and the final evaluation; prints an `eval:` line (resume
-     frame, map counts at the checkpoint and after restore, visualizer
-     images and time per vis, ATE, rejects, render and reconstruction
-     metrics, the evaluation's step times, launches) and gates on the
-     resume at frame 16 with the checkpoint's count restored, the four
+     count (11, cut from 31), the output and both vis_freq (5): first
+     with --stop 5, then with --resume in a fresh session, which runs
+     frames 6-10, color refinement and the final evaluation; prints an
+     `eval:` line (resume frame, map counts at the checkpoint and after
+     restore, visualizer images and time per vis, ATE, rejects, render
+     and reconstruction metrics, the evaluation's step times, launches)
+     and gates on the
+     resume at frame 6 with the checkpoint's count restored, the four
      visualizer PNGs, ATE <= 3 mm, no rejects, a mesh with faces, psnr >
      12, accuracy < 15 cm, completion ratio > 20, a finite lpips, no
      evaluation error and launches > 0; then (6b) holds the kernel against
@@ -72,13 +73,43 @@ Phases:
      launches > 0; then (8b) holds the kernel against its plain version,
      with per-query radii, at the tracking pool and a mapping pool over
      that path's final map;
+  9. runs the Replica path: the fixture writer puts a 6-frame
+     Replica-format sequence of the synthetic room (680x1200 JPEG color
+     at quality 92 through the port's own JPEG writer, 16-bit depth,
+     traj.txt; 0.004 of the orbit a frame) on disk, and the CLI runs
+     configs/Replica/room0.yaml as shipped on it (1500 tracking pixels x
+     40 iterations, 5000 mapping pixels over a window of 12, 1500 first
+     iterations, color refinement, the final evaluation), only the input,
+     the output and both vis_freq (5) changed; prints a `replica:` line
+     (ATE, rejects, launches, the phase times, color refinement, psnr,
+     mesh faces, peak memory, the host's read_jpeg and depth-PNG ms a
+     frame) and gates on ATE < 1 cm, no rejects, launches > 0, psnr > 12,
+     a mesh with faces and no evaluation error; then (9b) holds the
+     kernel against its plain version at Replica's mapping pool;
+ 10. runs the ScanNet path: a 6-frame ScanNet-format sequence (1296x968
+     JPEG color at quality 90 with a per-frame exposure gain and tint,
+     640x480 depth with holes, one inf ground-truth pose) and
+     configs/ScanNet/scene0000.yaml as shipped (exposure compensation, the
+     dynamic radius, 5000 gradient-pool tracking pixels x 100
+     iterations, 10000 mapping pixels over a window of 20, crop_edge 10);
+     prints a `scannet:` line (ATE, masked ground-truth poses, rejects,
+     launches, the exposure latent's norm, the color-decoder snapshots,
+     the phase times, psnr, the host's read_jpeg and resize_linear ms a
+     frame) and gates on ATE < 2 cm, an inf pose masked, no rejects,
+     launches > 0, a finite non-zero latent, one snapshot and one latent
+     per mapped frame, psnr > 12 and no evaluation error; then (10b)
+     holds the kernel against its plain version, with per-query radii,
+     at ScanNet's tracking pool;
 
 Prints a JSON line of per-kernel numbers, then the card's name and power
 limit, then {"ok": true, "device": {...}} as the last line. Exits non-zero
 (and prints no result) without a CUDA device or if any phase fails.
+`--dataset-runs N` runs only phases 9 and 10, N times each with their
+gates, for their run-to-run spread (no kernels line, no result line).
 Imports nothing of JAX; needs no PyYAML, cv2 or PIL (phases 3-5 build
-their config from DEFAULTS, phases 6 and 8 read YAML with the port's own
-reader, and phase 8 writes and reads its PNGs with the port's codec).
+their config from DEFAULTS, phases 6 and 8-10 read YAML with the port's
+own reader, and phases 8-10 write and read their PNGs and JPEGs with the
+port's codecs).
 """
 
 from __future__ import annotations
@@ -688,9 +719,11 @@ def refine_pool_check(slam, cfg):
                        cfg["pointcloud"]["radius_query"])
 
 
-CLI_FRAMES = 31
-CLI_STOP = 15
-CLI_VIS_FREQ = 15
+# cut from 31 frames (stop 15), then 21 (stop 10), so that the whole
+# script with the Replica and ScanNet paths stays near 1000 s on the card
+CLI_FRAMES = 11
+CLI_STOP = 5
+CLI_VIS_FREQ = 5
 # the JAX package's own gates on its final evaluation of the synthetic room
 # (tests/test_final_eval.py): psnr > 12 dB, accuracy < 15 cm, completion
 # ratio > 20 %
@@ -715,11 +748,11 @@ def cli_overlay(out: str) -> str:
 
 
 def cli_phase():
-    """The CLI path: `python -m loopy_slam_torch.run <overlay> --stop 15`,
-    then `... --resume` in a fresh session (frames 16-30, color
-    refinement, the final evaluation), with the kernel's launch count reset
-    before the first call and read after the second. Returns (summary,
-    overlay path)."""
+    """The CLI path: `python -m loopy_slam_torch.run <overlay> --stop
+    CLI_STOP`, then `... --resume` in a fresh session (the frames after it,
+    color refinement, the final evaluation), with the kernel's launch
+    count reset before the first call and read after the second. Returns
+    (summary, overlay path)."""
     import shutil
 
     from loopy_slam_torch import run as cli
@@ -888,6 +921,72 @@ def render_chunk_check(overlay, device):
                        cfg["pointcloud"]["radius_query"])
 
 
+def dataset_overlay(out: str, base_yaml: str, fixture: str,
+                    vis_freq: int) -> str:
+    """A config overlay of a shipped dataset YAML that changes only the
+    input folder, the output directory and both vis_freq. Returns its
+    path."""
+    path = os.path.join(out, os.path.basename(base_yaml))
+    with open(path, "w") as f:
+        f.write(f"inherit_from: {json.dumps(base_yaml)}\n"
+                f"data: {{input_folder: {json.dumps(fixture)}, "
+                f"output: {json.dumps(out)}}}\n"
+                f"tracking: {{vis_freq: {vis_freq}}}\n"
+                f"mapping: {{vis_freq: {vis_freq}}}\n")
+    return path
+
+
+def run_dataset_path(overlay, out):
+    """`python -m loopy_slam_torch.run` (its `main`) on overlay, with the
+    kernel's launch count reset just before and read just after; the
+    session's stats plus launches, run seconds, peak device memory, the
+    final mesh's face count and the visualizer's PNGs."""
+    import torch
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.ops import knn
+    from loopy_slam_torch.utils.io import read_ply_mesh
+
+    knn.KNN_SELECT_LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = cli.main([overlay])
+    run_s = time.perf_counter() - t0
+    launches = knn.KNN_SELECT_LAUNCHES.count
+    mesh_path = os.path.join(out, "mesh", "final_mesh.ply")
+    n_faces = (len(read_ply_mesh(mesh_path)[1])
+               if os.path.exists(mesh_path) else 0)
+    vis = sorted(f"{d}/{f}" for d in ("tracking_vis", "mapping_vis")
+                 if os.path.isdir(os.path.join(out, d))
+                 for f in os.listdir(os.path.join(out, d))
+                 if f.endswith(".png"))
+    return stats, {"knn_select_launches": launches, "run_s": run_s,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "mesh_faces": n_faces, "vis_images": vis}
+
+
+def session_summary(stats, extra):
+    """The phase-time and metric fields the dataset paths share."""
+    import numpy as np
+
+    t = stats["timings_s"]
+    med = lambda v: float(np.median(v)) if v else None  # noqa: E731
+    return {
+        "track_median_s": med(t.get("track")),
+        "map_median_s": med(t.get("map")), "map_times_s": t.get("map"),
+        "color_refine_s": (t.get("color_refine") or [None])[-1],
+        "vis_median_s": med(t.get("vis")),
+        "eval_timings_s": stats.get("eval_timings_s"),
+        "eval_error": stats.get("eval_error"),
+        "psnr": stats.get("psnr"), "depth_l1": stats.get("depth_l1"),
+        "ate_rmse_m": stats["rmse"],
+        "ate_rmse_noalign_m": stats["rmse_no_align"],
+        "ate_frames": stats["n"],
+        "health_rejects": stats["health_rejects"],
+        "segments": stats["segments"], "n_points": stats["n_points"],
+        **extra}
+
+
 TUM_FRAMES = 16
 TUM_VIS_FREQ = 6
 # the JAX package's band for its tiny TUM-format fixture session is 6 cm
@@ -896,21 +995,6 @@ TUM_VIS_FREQ = 6
 # track ends decimeters off (PERF.md)
 TUM_ATE_GATE_M = 0.02
 TUM_MIN_FRAMES = 10
-
-
-def tum_overlay(out: str, fixture: str) -> str:
-    """Write the TUM path's config: configs/TUM_RGBD/freiburg1_desk.yaml
-    as shipped, with only the input folder, the output directory and the
-    visualizer frequency changed. Returns its path."""
-    path = os.path.join(out, "tum_cli.yaml")
-    desk = os.path.join(HERE, "configs", "TUM_RGBD", "freiburg1_desk.yaml")
-    with open(path, "w") as f:
-        f.write(f"inherit_from: {json.dumps(desk)}\n"
-                f"data: {{input_folder: {json.dumps(fixture)}, "
-                f"output: {json.dumps(out)}}}\n"
-                f"tracking: {{vis_freq: {TUM_VIS_FREQ}}}\n"
-                f"mapping: {{vis_freq: {TUM_VIS_FREQ}}}\n")
-    return path
 
 
 def host_frame_costs(ds):
@@ -949,15 +1033,11 @@ def tum_phase():
     import shutil
 
     import numpy as np
-    import torch
 
-    from loopy_slam_torch import run as cli
     from loopy_slam_torch.config import load_config
-    from loopy_slam_torch.ops import knn
     from loopy_slam_torch.ops.image import dynamic_radius_maps
     from loopy_slam_torch.tools.make_sensor_fixtures import write_tum
     from loopy_slam_torch.utils.datasets import get_dataset
-    from loopy_slam_torch.utils.io import read_ply_mesh
 
     print(f"== phase 8: the TUM path, freiburg1_desk.yaml on a "
           f"{TUM_FRAMES}-frame TUM-format sequence", flush=True)
@@ -967,14 +1047,10 @@ def tum_phase():
     t0 = time.perf_counter()
     written = write_tum(fixture, TUM_FRAMES, 1.0 / 200.0)
     fixture_s = time.perf_counter() - t0
-    overlay = tum_overlay(out, fixture)
-    knn.KNN_SELECT_LAUNCHES.reset()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    stats = cli.main([overlay])
-    run_s = time.perf_counter() - t0
-    launches = knn.KNN_SELECT_LAUNCHES.count
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    overlay = dataset_overlay(
+        out, os.path.join(HERE, "configs", "TUM_RGBD",
+                          "freiburg1_desk.yaml"), fixture, TUM_VIS_FREQ)
+    stats, extra = run_dataset_path(overlay, out)
 
     cfg = load_config(overlay)
     ds = get_dataset(cfg)
@@ -984,18 +1060,10 @@ def tum_phase():
         pc["radius_query_ratio"], pc["color_grad_threshold"])[1].ravel()
         for i in range(len(ds))])
     png_s, und_s, map_s = host_frame_costs(ds)
-    mesh_path = os.path.join(out, "mesh", "final_mesh.ply")
-    n_faces = (len(read_ply_mesh(mesh_path)[1])
-               if os.path.exists(mesh_path) else 0)
-    vis = sorted(f"{d}/{f}" for d in ("tracking_vis", "mapping_vis")
-                 if os.path.isdir(os.path.join(out, d))
-                 for f in os.listdir(os.path.join(out, d))
-                 if f.endswith(".png"))
-    t = stats["timings_s"]
     g = stats["grad_stats"]
     med = lambda v: float(np.median(v)) if v else None  # noqa: E731
-    summary = {
-        "frames_written": TUM_FRAMES, "rgb_files": written["rgb"],
+    summary = session_summary(stats, {
+        **extra, "frames_written": TUM_FRAMES, "rgb_files": written["rgb"],
         "depth_files": written["depth"], "frames_associated": len(ds),
         "crop_hw": list(ds[0][1].shape[:2]),
         "r_query_median": float(np.median(rq)),
@@ -1004,24 +1072,9 @@ def tum_phase():
         "track_grad_pool_min": min(g["track_pool"], default=None),
         "grad_insert_locations": g["map_locations"],
         "grad_insert_points": sum(g["map_locations"]) * pc["N_add"],
-        "track_median_s": med(t.get("track")),
-        "map_median_s": med(t.get("map")),
-        "map_times_s": t.get("map"),
-        "color_refine_s": (t.get("color_refine") or [None])[-1],
-        "vis_median_s": med(t.get("vis")), "vis_images": vis,
-        "eval_timings_s": stats.get("eval_timings_s"),
-        "eval_error": stats.get("eval_error"),
-        "psnr": stats.get("psnr"), "depth_l1": stats.get("depth_l1"),
-        "ate_rmse_m": stats["rmse"],
-        "ate_rmse_noalign_m": stats["rmse_no_align"],
-        "health_rejects": stats["health_rejects"],
-        "segments": stats["segments"], "n_points": stats["n_points"],
-        "mesh_faces": n_faces, "peak_mem_gb": peak_gb,
-        "knn_select_launches": launches,
         "png_decode_s_per_frame": med(png_s),
         "undistort_s_per_frame": med(und_s), "undistort_map_s": map_s,
-        "fixture_write_s": fixture_s, "run_s": run_s,
-    }
+        "fixture_write_s": fixture_s})
     print("tum:", json.dumps(summary), flush=True)
     failures = []
     if summary["frames_associated"] < TUM_MIN_FRAMES:
@@ -1034,12 +1087,12 @@ def tum_phase():
         failures.append(f"{summary['health_rejects']} health-gate rejects")
     if summary["grad_insert_points"] <= 0:
         failures.append("the color-gradient picks inserted no point")
-    if n_faces <= 0:
+    if summary["mesh_faces"] <= 0:
         failures.append("final_mesh.ply has no faces")
     if summary["eval_error"]:
         failures.append(f"the final evaluation failed: "
                         f"{summary['eval_error']}")
-    if launches <= 0:
+    if summary["knn_select_launches"] <= 0:
         failures.append("the TUM path never launched the knn_select kernel")
     if failures:
         raise AssertionError("the TUM path: " + "; ".join(failures))
@@ -1097,13 +1150,10 @@ def tum_kernel_check(overlay, device):
     pool, at its estimated pose) and a mapping pool (pixel_pool_factor x
     pixels / window rays of each of the window's frames, the last mapped
     frames at their estimated poses)."""
-    import numpy as np
     import torch
 
     from loopy_slam_torch import run as cli
     from loopy_slam_torch.config import load_config
-    from loopy_slam_torch.ops.image import (dynamic_radius_maps,
-                                            select_pixels_by_grad)
     from loopy_slam_torch.slam import update_cam
     from loopy_slam_torch.utils.datasets import get_dataset
     from loopy_slam_torch.utils.io import load_checkpoint
@@ -1114,32 +1164,12 @@ def tum_kernel_check(overlay, device):
     ck = load_checkpoint(cli.latest_checkpoint(cfg["data"]["output"]))
     grid = checkpoint_grid(cfg, ck, device)
     ds = get_dataset(cfg)
-    cam = update_cam(cfg)
-    pc, t, m = cfg["pointcloud"], cfg["tracking"], cfg["mapping"]
+    m = cfg["mapping"]
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
-
-    def view(i):
-        _, color, depth, _ = ds[i]
-        _, rq = dynamic_radius_maps(
-            color, pc["radius_add_max"], pc["radius_add_min"],
-            pc["radius_query_ratio"], pc["color_grad_threshold"])
-        pose = np.asarray(ck["estimate_c2w_list"][i], np.float32)
-        return (color, torch.as_tensor(depth, device=device),
-                torch.as_tensor(pose, device=device),
-                torch.as_tensor(rq, device=device))
-
     last = len(ds) - 1
-    v = view(last)
-    flat, _ = select_pixels_by_grad(
-        t["ignore_edge_H"], cam["H"] - t["ignore_edge_H"],
-        t["ignore_edge_W"], cam["W"] - t["ignore_edge_W"], t["pixels"],
-        v[0], gt_depth=v[1].cpu().numpy(), depth_limit=t["depth_limit"])
-    n_track = t["pixels"] * t.get("pool_factor", 4)
-    q, r = radius_pool_queries(
-        [v], n_track, cam, cfg["rendering"], gen,
-        pools=[torch.as_tensor(flat, device=device)])
-    k = pc["nn_num"]
+    q, r = track_pool_queries(cfg, ck, ds, device, gen, last)
+    k = cfg["pointcloud"]["nn_num"]
     M, T = grid.cell_data.shape[1], grid.cell_data.shape[0] - 1
     results = [check_shape(f"tum_track_pool Q={q.shape[0]} M={M} T={T}",
                            grid, q, k, r)]
@@ -1148,12 +1178,315 @@ def tum_kernel_check(overlay, device):
     mapped = list(range(last, -1, -m["every_frame"]))
     frames = [mapped[i % len(mapped)] for i in range(window)]
     per_frame = m.get("pixel_pool_factor", 8) * max(m["pixels"] // window, 1)
-    q, r = radius_pool_queries([view(i) for i in frames], per_frame, cam,
-                               cfg["rendering"], gen)
+    q, r = radius_pool_queries(
+        [frame_view(cfg, ck, ds, device, i) for i in frames], per_frame,
+        update_cam(cfg), cfg["rendering"], gen)
     results.append(check_shape(
         f"tum_map_pool Q={q.shape[0]} F={len(frames)} M={M} T={T}", grid,
         q, k, r))
     return results
+
+
+def track_pool_queries(cfg, ck, ds, device, gen, idx):
+    """The tracking pool of frame idx at its estimated pose: pool_factor x
+    pixels rays drawn from the frame's color-gradient pool (with
+    tracking.sample_with_color_grad; else from the frame inside the ignored
+    edges), N_surface samples each, with their per-query radii (the frame's
+    r_query map with the dynamic radius, else pointcloud.radius_query)."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch.ops.image import select_pixels_by_grad
+    from loopy_slam_torch.slam import update_cam
+
+    cam = update_cam(cfg)
+    t = cfg["tracking"]
+    view = frame_view(cfg, ck, ds, device, idx)
+    if t["sample_with_color_grad"]:
+        flat, _ = select_pixels_by_grad(
+            t["ignore_edge_H"], cam["H"] - t["ignore_edge_H"],
+            t["ignore_edge_W"], cam["W"] - t["ignore_edge_W"], t["pixels"],
+            view[0], gt_depth=view[1].cpu().numpy(),
+            depth_limit=t["depth_limit"])
+    else:
+        jj, ii = np.mgrid[t["ignore_edge_H"]:cam["H"] - t["ignore_edge_H"],
+                          t["ignore_edge_W"]:cam["W"] - t["ignore_edge_W"]]
+        flat = (jj * cam["W"] + ii).ravel()
+    n_track = t["pixels"] * t.get("pool_factor", 4)
+    return radius_pool_queries(
+        [view], n_track, cam, cfg["rendering"], gen,
+        pools=[torch.as_tensor(flat, device=device)])
+
+
+def frame_view(cfg, ck, ds, device, i):
+    """Frame i of the dataset on the card at its estimated pose in the
+    checkpoint ck: (color numpy, depth, c2w, r_query map), the query radius
+    map from the frame's color gradient with the dynamic radius, else
+    pointcloud.radius_query everywhere."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch.ops.image import dynamic_radius_maps
+
+    pc = cfg["pointcloud"]
+    _, color, depth, _ = ds[i]
+    if cfg["use_dynamic_radius"]:
+        _, rq = dynamic_radius_maps(
+            color, pc["radius_add_max"], pc["radius_add_min"],
+            pc["radius_query_ratio"], pc["color_grad_threshold"])
+    else:
+        rq = np.full(depth.shape, pc["radius_query"], np.float32)
+    pose = np.asarray(ck["estimate_c2w_list"][i], np.float32)
+    return (color, torch.as_tensor(depth, device=device),
+            torch.as_tensor(pose, device=device),
+            torch.as_tensor(rq, device=device))
+
+
+def jpeg_frame_costs(ds):
+    """Per-frame host seconds of the JPEG loaders' costs: read_jpeg on the
+    color file, read_png on the depth file, and resize_linear of the color
+    to depth's size (None where the sizes agree)."""
+    import numpy as np
+
+    from loopy_slam_torch.utils.imageio import (read_jpeg, read_png,
+                                                resize_linear)
+
+    jpg_s, png_s, resize_s = [], [], []
+    for cp, dp in zip(ds.color_paths, ds.depth_paths):
+        t0 = time.perf_counter()
+        color = read_jpeg(cp)
+        t1 = time.perf_counter()
+        depth = read_png(dp)
+        t2 = time.perf_counter()
+        jpg_s.append(t1 - t0)
+        png_s.append(t2 - t1)
+        if color.shape[:2] != depth.shape:
+            c = color.astype(np.float32) / 255.0
+            t0 = time.perf_counter()
+            resize_linear(c, depth.shape[::-1])
+            resize_s.append(time.perf_counter() - t0)
+    med = lambda v: float(np.median(v)) * 1e3 if v else None  # noqa: E731
+    return med(jpg_s), med(png_s), med(resize_s)
+
+
+# the Replica path: configs/Replica/room0.yaml as shipped on a sequence of
+# the synthetic room at Replica's 680x1200 geometry, written at the
+# Synthetic default of 0.004 a frame (~1.1 cm, Replica-like); cut to 6
+# frames (mapped frames 0 and 5). Gates: the room paths' band is <= 3 mm,
+# so < 1 cm still fails a session that loses track (decimeters off)
+REPLICA_FRAMES = 6
+REPLICA_SPEED = 0.004
+REPLICA_VIS_FREQ = 5
+REPLICA_ATE_GATE_M = 0.01
+PSNR_GATE_DB = 12.0
+
+
+def replica_phase():
+    """The Replica path: the port's writer puts a Replica-format sequence
+    (680x1200 JPEG color at quality 92, 16-bit depth, traj.txt) on disk,
+    then the CLI runs room0.yaml as shipped on it. Returns (summary,
+    overlay path)."""
+    import shutil
+
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.tools.make_sensor_fixtures import write_replica
+    from loopy_slam_torch.utils.datasets import get_dataset
+
+    print(f"== phase 9: the Replica path, room0.yaml on a "
+          f"{REPLICA_FRAMES}-frame Replica-format sequence", flush=True)
+    out = os.path.join(HERE, "output", "chip_smoke_replica")
+    shutil.rmtree(out, ignore_errors=True)
+    fixture = os.path.join(out, "sequence")
+    t0 = time.perf_counter()
+    write_replica(fixture, REPLICA_FRAMES, REPLICA_SPEED)
+    fixture_s = time.perf_counter() - t0
+    overlay = dataset_overlay(
+        out, os.path.join(HERE, "configs", "Replica", "room0.yaml"),
+        fixture, REPLICA_VIS_FREQ)
+    stats, extra = run_dataset_path(overlay, out)
+    ds = get_dataset(load_config(overlay))
+    jpg_ms, png_ms, _ = jpeg_frame_costs(ds)
+    summary = session_summary(stats, {
+        **extra, "frames": len(ds), "hw": list(ds[0][1].shape[:2]),
+        "read_jpeg_ms_per_frame": jpg_ms,
+        "depth_png_ms_per_frame": png_ms, "fixture_write_s": fixture_s})
+    print("replica:", json.dumps(summary), flush=True)
+    failures = []
+    if not summary["ate_rmse_m"] < REPLICA_ATE_GATE_M:
+        failures.append(f"ATE {summary['ate_rmse_m']} m not < "
+                        f"{REPLICA_ATE_GATE_M} m")
+    if summary["health_rejects"]:
+        failures.append(f"{summary['health_rejects']} health-gate rejects")
+    if extra["knn_select_launches"] <= 0:
+        failures.append("the Replica path never launched the knn_select "
+                        "kernel")
+    if not (summary["psnr"] or 0) > PSNR_GATE_DB:
+        failures.append(f"psnr {summary['psnr']} not > {PSNR_GATE_DB}")
+    if extra["mesh_faces"] <= 0:
+        failures.append("final_mesh.ply has no faces")
+    if summary["eval_error"]:
+        failures.append(f"the final evaluation failed: "
+                        f"{summary['eval_error']}")
+    if failures:
+        raise AssertionError("the Replica path: " + "; ".join(failures))
+    return summary, overlay
+
+
+def replica_kernel_check(overlay, device):
+    """The kernel against its plain version at Replica's mapping pool over
+    that path's final map: pixel_pool_factor x pixels / window rays of each
+    of the window's frames (the mapped frames, repeated to
+    mapping_window_size as the mapper pads), N_surface samples each, at
+    the scalar radius."""
+    import torch
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.slam import update_cam
+    from loopy_slam_torch.utils.datasets import get_dataset
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    print("== phase 9b: knn_select at Replica's mapping pool", flush=True)
+    cfg = load_config(overlay)
+    ck = load_checkpoint(cli.latest_checkpoint(cfg["data"]["output"]))
+    grid = checkpoint_grid(cfg, ck, device)
+    ds = get_dataset(cfg)
+    m, pc = cfg["mapping"], cfg["pointcloud"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    window = m["mapping_window_size"]
+    mapped = list(range(len(ds) - 1, -1, -m["every_frame"]))
+    frames = [mapped[i % len(mapped)] for i in range(window)]
+    per_frame = m.get("pixel_pool_factor", 8) * max(m["pixels"] // window, 1)
+    q, _ = radius_pool_queries(
+        [frame_view(cfg, ck, ds, device, i) for i in frames], per_frame,
+        update_cam(cfg), cfg["rendering"], gen)
+    M, T = grid.cell_data.shape[1], grid.cell_data.shape[0] - 1
+    return check_shape(
+        f"replica_map_pool Q={q.shape[0]} F={len(frames)} M={M} T={T}",
+        grid, q, pc["nn_num"], pc["radius_query"])
+
+
+# the ScanNet path: configs/ScanNet/scene0000.yaml as shipped on a
+# ScanNet-format sequence (1296x968 JPEG color at quality 90 with a
+# per-frame exposure gain and tint, 640x480 depth with holes), cut to 6
+# frames (mapped frames 0 and 5; 11 in a first card run, cut for time). The
+# writer's seed draws which frames carry an inf ground-truth pose
+# (max(frames // 200, 1) of them, frames 0 and 1 excepted); with 6 frames
+# its default seed 11 draws frame 0, so no pose would be inf; seed 0 draws
+# frame 5, the last mapped frame
+SCANNET_FRAMES = 6
+SCANNET_SEED = 0
+SCANNET_SPEED = 1.0 / 200.0
+SCANNET_VIS_FREQ = 5
+SCANNET_ATE_GATE_M = 0.02
+
+
+def scannet_phase():
+    """The ScanNet path: the port's writer puts a ScanNet-format sequence
+    on disk, then the CLI runs scene0000.yaml as shipped on it (exposure
+    compensation, the dynamic radius, the color-gradient tracking pool,
+    crop_edge 10). Returns (summary, overlay path)."""
+    import shutil
+
+    import numpy as np
+
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.tools.make_sensor_fixtures import write_scannet
+    from loopy_slam_torch.utils.datasets import get_dataset
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    print(f"== phase 10: the ScanNet path, scene0000.yaml on a "
+          f"{SCANNET_FRAMES}-frame ScanNet-format sequence", flush=True)
+    out = os.path.join(HERE, "output", "chip_smoke_scannet")
+    shutil.rmtree(out, ignore_errors=True)
+    fixture = os.path.join(out, "sequence")
+    t0 = time.perf_counter()
+    written = write_scannet(fixture, SCANNET_FRAMES, SCANNET_SPEED,
+                            seed=SCANNET_SEED)
+    fixture_s = time.perf_counter() - t0
+    overlay = dataset_overlay(
+        out, os.path.join(HERE, "configs", "ScanNet", "scene0000.yaml"),
+        fixture, SCANNET_VIS_FREQ)
+    stats, extra = run_dataset_path(overlay, out)
+    cfg = load_config(overlay)
+    ds = get_dataset(cfg)
+    jpg_ms, png_ms, resize_ms = jpeg_frame_costs(ds)
+    from loopy_slam_torch import run as cli
+
+    r = load_checkpoint(cli.latest_checkpoint(out))["resume"]
+    ef = np.asarray(r["exposure_feat"], np.float64)
+    every = cfg["mapping"]["every_frame"]
+    mapped = sorted({*range(0, len(ds), every), len(ds) - 1})
+    cd_dir = os.path.join(out, "ckpts", "color_decoder")
+    snaps = sorted(os.listdir(cd_dir)) if os.path.isdir(cd_dir) else []
+    summary = session_summary(stats, {
+        **extra, "frames": len(ds), "crop_hw": list(ds[0][1].shape[:2]),
+        "inf_gt_poses": written["bad_poses"],
+        "gt_poses_masked": len(ds) - stats["n"],
+        "exposure_latent_norm": float(np.linalg.norm(ef)),
+        "exposure_latent_finite": bool(np.isfinite(ef).all()),
+        "mapped_exposure_frames": sorted(r["mapped_exposure"]),
+        "color_decoder_snapshots": snaps,
+        "read_jpeg_ms_per_frame": jpg_ms,
+        "depth_png_ms_per_frame": png_ms,
+        "resize_linear_ms_per_frame": resize_ms,
+        "fixture_write_s": fixture_s})
+    print("scannet:", json.dumps(summary), flush=True)
+    failures = []
+    if not written["bad_poses"] or summary["gt_poses_masked"] < 1:
+        failures.append("no inf ground-truth pose was masked")
+    if not summary["ate_rmse_m"] < SCANNET_ATE_GATE_M:
+        failures.append(f"ATE {summary['ate_rmse_m']} m not < "
+                        f"{SCANNET_ATE_GATE_M} m")
+    if summary["health_rejects"]:
+        failures.append(f"{summary['health_rejects']} health-gate rejects")
+    if extra["knn_select_launches"] <= 0:
+        failures.append("the ScanNet path never launched the knn_select "
+                        "kernel")
+    if not (summary["exposure_latent_finite"]
+            and summary["exposure_latent_norm"] > 0):
+        failures.append(f"exposure latent {ef.tolist()} not finite and "
+                        "non-zero")
+    if snaps != [f"{i:05d}.pkl" for i in mapped] \
+            or summary["mapped_exposure_frames"] != mapped:
+        failures.append(f"color-decoder snapshots {snaps} / mapped latents "
+                        f"{summary['mapped_exposure_frames']}, expected one "
+                        f"per mapped frame {mapped}")
+    if not (summary["psnr"] or 0) > PSNR_GATE_DB:
+        failures.append(f"psnr {summary['psnr']} not > {PSNR_GATE_DB}")
+    if summary["eval_error"]:
+        failures.append(f"the final evaluation failed: "
+                        f"{summary['eval_error']}")
+    if failures:
+        raise AssertionError("the ScanNet path: " + "; ".join(failures))
+    return summary, overlay
+
+
+def scannet_kernel_check(overlay, device):
+    """The kernel against its plain version at ScanNet's tracking pool,
+    with per-query radii, over that path's final map: pool_factor x pixels
+    rays from the last frame's color-gradient pool at its estimated
+    pose."""
+    import torch
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.utils.datasets import get_dataset
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    print("== phase 10b: knn_select at ScanNet's tracking pool, per-query "
+          "radii", flush=True)
+    cfg = load_config(overlay)
+    ck = load_checkpoint(cli.latest_checkpoint(cfg["data"]["output"]))
+    grid = checkpoint_grid(cfg, ck, device)
+    ds = get_dataset(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(10)
+    q, r = track_pool_queries(cfg, ck, ds, device, gen, len(ds) - 1)
+    M, T = grid.cell_data.shape[1], grid.cell_data.shape[0] - 1
+    return check_shape(f"scannet_track_pool Q={q.shape[0]} M={M} T={T}",
+                       grid, q, cfg["pointcloud"]["nn_num"], r)
 
 
 def profile_phase(device, n_frames=6, top=15):
@@ -1200,12 +1533,15 @@ def profile_phase(device, n_frames=6, top=15):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=8,
+    ap.add_argument("--frames", type=int, default=6,
                     help="frames of the slice-1 path (phase 4)")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler trace of a 6-frame session")
     ap.add_argument("--variants", action="store_true",
                     help="also build and time the VARIANTS of knn_select.cu")
+    ap.add_argument("--dataset-runs", type=int, default=0,
+                    help="run only the Replica and ScanNet paths, this many "
+                         "times each (their spread; prints no result)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1233,6 +1569,11 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     if build.BUILD_LOG:
         print(build.BUILD_LOG["log"].strip(), flush=True)
+    if args.dataset_runs:
+        for _ in range(args.dataset_runs):
+            replica_phase()
+            scannet_phase()
+        return 0
 
     # the kernel check's map spans frames 0..30 whatever the slice's length
     cfg = room_config(31, os.path.join(HERE, "output", "chip_smoke"))
@@ -1247,25 +1588,28 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tum_summary, tum_cfg = tum_phase()
     shape_results += tum_kernel_check(tum_cfg, device)
+    torch.cuda.empty_cache()
+    replica_summary, replica_cfg = replica_phase()
+    shape_results.append(replica_kernel_check(replica_cfg, device))
+    torch.cuda.empty_cache()
+    scannet_summary, scannet_cfg = scannet_phase()
+    shape_results.append(scannet_kernel_check(scannet_cfg, device))
     if args.profile:
         profile_phase(device)
 
     main_shape = next(r for r in shape_results
                       if r["shape"].startswith("map_pool"))
+    # each path's count, reset just before its run and read just after
+    by_path = {name: res["knn_select_launches"] for name, res in (
+        ("slice1", summary), ("segmented", seg_summary),
+        ("cli", cli_summary), ("tum", tum_summary),
+        ("replica", replica_summary), ("scannet", scannet_summary))}
     entry = {
         "name": "knn_select", "route": "cuda",
         "source": "loopy_slam_torch/csrc/knn_select.cu",
         "replaces": "loopy_slam_tpu/ops/knn.py:231",
-        # each path's count, reset just before its run and read just after
-        "launches": (summary["knn_select_launches"]
-                     + seg_summary["knn_select_launches"]
-                     + cli_summary["knn_select_launches"]
-                     + tum_summary["knn_select_launches"]),
-        "launches_by_path": {
-            "slice1": summary["knn_select_launches"],
-            "segmented": seg_summary["knn_select_launches"],
-            "cli": cli_summary["knn_select_launches"],
-            "tum": tum_summary["knn_select_launches"]},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in shape_results),
         "ms": main_shape["ms"],
         "call_ms": main_shape["call_ms"],

@@ -1,14 +1,16 @@
 """Carry decoder weights and map state between the JAX package and the port.
 
 Both sides meet as numpy: the JAX decoder pytree maps leaf for leaf onto
-the port's `Decoders` (same names, same (in, out) layout), and a JAX
-MapState/HashGrid maps onto the port's, with the hash grid's packed
-`cell_data` layout unchanged (indices still carry the _IDX_TAG bit).
+the port's `Decoders` (same names, same (in, out) layout; the exposure MLP
+`col.exposure` included), a JAX MapState/HashGrid maps onto the port's,
+with the hash grid's packed `cell_data` layout unchanged (indices still
+carry the _IDX_TAG bit), and a checkpoint's exposure state (the current
+latent, each keyframe's and each mapped frame's) maps onto the session's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -74,3 +76,25 @@ def map_state_from_numpy(pos, feat, count, cell_data, cell_fill, cell_size,
         in_rgb=f32(in_rgb) if in_rgb is not None
         else torch.zeros((cap, 3), device=dev),
         in_count=i32(in_count).reshape(()))
+
+
+def exposure_state_from_numpy(resume: Dict[str, Any], dim: int, device=None
+                              ) -> Tuple[torch.Tensor, Dict[int, np.ndarray],
+                                         Dict[int, np.ndarray]]:
+    """A checkpoint's `resume` exposure fields (either package's) -> the
+    session's (exposure_feat (dim,) on `device`, kf_exposure,
+    mapped_exposure), the dicts by frame index as float32 numpy. Missing
+    fields give zeros and empty dicts. device: the card unless the caller
+    asks for the CPU."""
+    dev = resolve_device(device)
+    ef = np.asarray(resume.get("exposure_feat", np.zeros(dim)), np.float32)
+    if ef.shape != (dim,):
+        raise ValueError(f"checkpoint exposure latent of shape {ef.shape}, "
+                         f"expected ({dim},) (model.exposure_dim)")
+
+    def frames(d):
+        return {int(k): np.asarray(v, np.float32).reshape(dim)
+                for k, v in (d or {}).items()}
+
+    return (torch.tensor(ef, device=dev), frames(resume.get("kf_exposure")),
+            frames(resume.get("mapped_exposure")))

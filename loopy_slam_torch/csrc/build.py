@@ -3,8 +3,9 @@
 The CUDA sources in this directory are compiled at first use with nvcc
 into a shared library with a plain C interface, loaded with ctypes (no
 PyTorch headers, so a build takes seconds). The host mesh rasterizer
-(`raster_depth.cpp`) and the PNG reader's unfilter (`png_unfilter.cpp`)
-are libraries of their own, built with g++, so that they build wherever a
+(`raster_depth.cpp`), the PNG reader's unfilter (`png_unfilter.cpp`) and
+the JPEG codec's entropy coding (`jpeg_huffman.cpp`) are libraries of
+their own, built with g++, so that they build wherever a
 C++ compiler is, the CPU tests' machine included. Each
 library lands in `loopy_slam_torch/_build/`, named by a hash of its
 sources, its flags and the compiler's version, so a changed source or flag
@@ -37,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # source, and no fused multiply-adds on any host
 RASTER_SOURCE = "raster_depth.cpp"
 PNG_SOURCE = "png_unfilter.cpp"
+JPEG_SOURCE = "jpeg_huffman.cpp"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 
 _lock = threading.Lock()
@@ -108,11 +110,11 @@ def build_library() -> str:
                     BUILD_LOG)
 
 
-def _load_host_library(source: str, stem: str, what: str, fn_name: str,
-                       argtypes) -> ctypes.CDLL:
+def _load_host_library(source: str, stem: str, what: str,
+                       functions: dict) -> ctypes.CDLL:
     """Build (if needed) and load the g++ library of `source`, once per
-    process, declaring its C entry point; raises when g++ is missing or
-    the build fails."""
+    process, declaring its C entry points ({name: argtypes}, each
+    returning int); raises when g++ is missing or the build fails."""
     with _lock:
         if source not in _host_libs:
             gxx = shutil.which("g++")
@@ -121,9 +123,10 @@ def _load_host_library(source: str, stem: str, what: str, fn_name: str,
                     f"g++ not found on PATH; {what} is built from source at "
                     "first use")
             lib = ctypes.CDLL(_compile(gxx, (source,), GXX_FLAGS, stem, {}))
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in functions.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _host_libs[source] = lib
         return _host_libs[source]
 
@@ -133,16 +136,27 @@ def load_raster_library() -> ctypes.CDLL:
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     return _load_host_library(
         RASTER_SOURCE, "loopy_raster",
-        "the mesh rasterizer of the reconstruction metrics", "raster_depth",
-        [vp, ci, vp, ci, vp, ci, ci, cd, cd, cd, cd, vp])
+        "the mesh rasterizer of the reconstruction metrics",
+        {"raster_depth": [vp, ci, vp, ci, vp, ci, ci, cd, cd, cd, cd, vp]})
 
 
 def load_png_library() -> ctypes.CDLL:
     """The PNG reader's scanline unfilter."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load_host_library(PNG_SOURCE, "loopy_png",
-                              "the PNG reader's unfilter", "png_unfilter",
-                              [vp, vp, ci, ci, ci])
+                              "the PNG reader's unfilter",
+                              {"png_unfilter": [vp, vp, ci, ci, ci]})
+
+
+def load_jpeg_library() -> ctypes.CDLL:
+    """The JPEG reader's and writer's scan coding (jpeg_decode,
+    jpeg_encode)."""
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    return _load_host_library(
+        JPEG_SOURCE, "loopy_jpeg", "the JPEG codec's scan coding",
+        {"jpeg_decode": [vp, cl, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, ci,
+                         vp, vp],
+         "jpeg_encode": [vp, ci, ci, vp, vp, vp, vp, vp, cl, vp]})
 
 
 def load_library() -> ctypes.CDLL:

@@ -4,13 +4,18 @@
 Port of loopy_slam_tpu/mapping/mapper.py for one device. Each iteration
 optimizes the decoders and the FULL feature buffer with gradients masked
 by the frustum-selection mask and the decoders' trainable mask; the Adam
-state is fresh per mapping frame and threads across chunks. With
+state threads across chunks; the session starts the color leaves afresh
+at the color stage (stage_chunks, start_color_stage: unlike the JAX
+package, which threads one step count through both stages). With
 pixel_pool_factor > 0 each chunk samples a pool of rays once, runs the
 k-NN once over it, and every iteration draws its rays from the pool.
 
 Loss: depth L1 over (gt>0 & valid_ray & finite & inside) rays; the color
 stage adds w_color_loss * color L1 against targets clipped to
-[1/510, 1 - 1/510].
+[1/510, 1 - 1/510]. With model.encode_exposure the renderer hands back raw
+color logits and each window frame's composited colors go through its own
+exposure affine (the keyframes' stored latents, the current frame's
+trainable one at lr 0.001), then the soft clamp and the sigmoid.
 
 Random draws (ops/draws.py), in order. Insertion: rows (n,), cols (n,),
 then the new features' normals; insertion at given pixels (the
@@ -27,8 +32,10 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..models.decoder import exposure_affine
 from ..models.renderer import (RenderOptions, decode_neighbors,
-                               gather_featpos, render_batch_ray)
+                               gather_featpos, render_batch_ray,
+                               soft_clamp_logits)
 from ..ops import adam, knn
 from ..ops.camera import invert_c2w, project_points, rays_from_uv
 from ..ops.compositing import composite
@@ -53,6 +60,7 @@ class MapperOptions(NamedTuple):
     cy: float = 339.5
     pixel_pool_factor: int = 8
     pool_color_stage: bool = True
+    encode_exposure: bool = False
 
     @staticmethod
     def from_cfg(cfg):
@@ -67,6 +75,7 @@ class MapperOptions(NamedTuple):
             fx=cam["fx"], fy=cam["fy"], cx=cam["cx"] - e, cy=cam["cy"] - e,
             pixel_pool_factor=int(m.get("pixel_pool_factor", 8)),
             pool_color_stage=bool(m.get("pool_color_stage", True)),
+            encode_exposure=cfg["model"]["encode_exposure"],
         )
 
 
@@ -178,8 +187,23 @@ def _window_rays(draw, kf_color, kf_depth, kf_c2w, kf_rq,
     return ro, rd, d, c, d > 0, rq
 
 
+def _exposed(color, dec, exposure, F: int):
+    """Each window frame's composited color logits (F * n, 3) through its
+    exposure affine, soft clamp and sigmoid. exposure: (kf_exposure (F, 8)
+    of which the last row is replaced, exp (8,) the current frame's
+    trainable latent)."""
+    kf_exposure, exp = exposure
+    latents = torch.cat([kf_exposure[:-1], exp[None]])
+    rots, transs = exposure_affine(dec.col.exposure, latents)
+    cf = torch.einsum("fpc,fcd->fpd", color.reshape(F, -1, 3), rots) \
+        + transs[:, None, :]
+    return torch.sigmoid(soft_clamp_logits(cf)).reshape(-1, 3)
+
+
 def _loss_terms(d, c, inside, valid_ray, depth, color, stage,
-                opts: MapperOptions):
+                opts: MapperOptions, dec=None, exposure=None, F: int = 1):
+    if stage == "color" and opts.encode_exposure:
+        color = _exposed(color, dec, exposure, F)
     m = (d > 0) & valid_ray & torch.isfinite(depth) & inside
     zero = torch.zeros((), device=d.device)
     geo_loss = torch.sum(torch.where(m, torch.abs(d - depth), zero))
@@ -196,9 +220,10 @@ def _loss_terms(d, c, inside, valid_ray, depth, color, stage,
 
 def _map_loss(dec, feats, map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq,
               draw, stage, opts: MapperOptions, ropts: RenderOptions,
-              pix_per_frame: int):
+              pix_per_frame: int, exposure=None):
     """One mapping iteration's loss over pix_per_frame fresh rays from each
-    of the F window frames (last = current frame)."""
+    of the F window frames (last = current frame); exposure: see
+    _exposed (with encode_exposure)."""
     ro, rd, d, c, valid, rq = _window_rays(draw, kf_color, kf_depth, kf_c2w,
                                            kf_rq, opts, pix_per_frame)
     ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
@@ -209,7 +234,8 @@ def _map_loss(dec, feats, map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq,
     depth, _var, color, valid_ray = render_batch_ray(
         dec, map_pos, grid, feats, ro, rd, d, inside, draw, ropts, stage,
         r_query=None if rq is None else rq.reshape(-1))
-    return _loss_terms(d, c, inside, valid_ray, depth, color, stage, opts)
+    return _loss_terms(d, c, inside, valid_ray, depth, color, stage, opts,
+                       dec, exposure, kf_color.shape[0])
 
 
 class _NeighborPool(NamedTuple):
@@ -257,7 +283,7 @@ def _build_pool(map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq, draw,
 
 def _map_loss_pool(dec, feats, pool: _NeighborPool, map_pos, draw, stage,
                    opts: MapperOptions, ropts: RenderOptions,
-                   pix_per_frame: int):
+                   pix_per_frame: int, exposure=None):
     """One mapping iteration's loss over rays drawn from the pool."""
     F, P = pool.d.shape
     S, k = ropts.n_surface, ropts.nn_num
@@ -293,7 +319,8 @@ def _map_loss_pool(dec, feats, pool: _NeighborPool, map_pos, draw, stage,
     depth, _var, color, _ = composite(
         rgb.reshape(R, S, 3), occ.reshape(R, S), z_vals, ropts.sigmoid_coef)
     depth = torch.where(d > 0, depth, torch.zeros((), device=d.device))
-    return _loss_terms(d, c, inside, valid_ray, depth, color, stage, opts)
+    return _loss_terms(d, c, inside, valid_ray, depth, color, stage, opts,
+                       dec, exposure, F)
 
 
 def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
@@ -301,24 +328,32 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
                        draw, n_geo_iters: int, n_col_iters: int,
                        lrs_geo, lrs_col, opts: MapperOptions,
                        ropts: RenderOptions, pix_per_frame: int,
-                       kf_rq=None):
+                       kf_rq=None, kf_exposure=None, exp=None):
     """Run a chunk of the geometry -> color mapping optimization.
 
     dec: Decoders (updated in place); feat: (cap, 2c) packed features;
-    adam_state: ops.adam.AdamState over [decoder params..., feat] (None to
-    start fresh); dec_mask: {param name: trainable}; feat_mask: (cap,) bool
-    frustum-selected rows; lrs_geo/lrs_col: [decoders_lr, geometry_lr,
-    color_lr]; kf_rq: the window frames' (F, H, W) query-radius maps (the
-    dynamic radius), or None for ropts.radius_query. Returns (feat,
-    adam_state, (geo_loss, col_loss, n_rays)).
+    adam_state: ops.adam.AdamState over [decoder params..., feat] (and exp
+    last, with exposure; None to start fresh); dec_mask: {param name:
+    trainable}; feat_mask: (cap,) bool frustum-selected rows;
+    lrs_geo/lrs_col: [decoders_lr, geometry_lr, color_lr]; kf_rq: the
+    window frames' (F, H, W) query-radius maps (the dynamic radius), or
+    None for ropts.radius_query. With opts.encode_exposure: kf_exposure
+    (F, 8) the window frames' exposure latents (the last row stands for
+    the current frame) and exp (8,) the current frame's latent, trained at
+    lr 0.001. Returns (feat, adam_state, (geo_loss, col_loss, n_rays)),
+    and exp' after them with exposure.
     """
     names = [n for n, _ in dec.named_parameters()]
     params = [p for _, p in dec.named_parameters()]
     dec_on = [dec_mask[n] for n in names]
     fm = feat_mask[:, None].float()
     c = feat.shape[1] // 2
+    with_exp = opts.encode_exposure
+    if with_exp and (kf_exposure is None or exp is None):
+        raise ValueError("model.encode_exposure needs kf_exposure and exp")
+    extra = [exp.detach()] if with_exp else []
     if adam_state is None:
-        adam_state = adam.init(params + [feat])
+        adam_state = adam.init(params + [feat] + extra)
     use_pool = opts.pixel_pool_factor > 0 and not ropts.sample_near_pcl
     pool = None
     if use_pool:
@@ -332,32 +367,74 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
                                         or opts.pool_color_stage)
         lr_feat = torch.cat([torch.full((c,), float(lrs[1])),
                              torch.full((c,), float(lrs[2]))]).to(feat.device)
-        lr_list = [float(lrs[0])] * len(params) + [lr_feat]
+        lr_list = [float(lrs[0])] * len(params) + [lr_feat] \
+            + [0.001] * len(extra)
         for _ in range(n_iters):
             feat_v = feat.detach().requires_grad_(True)
+            exp_v = [e.detach().requires_grad_(True) for e in extra]
+            exposure = (kf_exposure, exp_v[0]) if with_exp else None
             if pool_this_stage:
                 loss, aux = _map_loss_pool(dec, feat_v, pool, map_pos, draw,
-                                           stage, opts, ropts, pix_per_frame)
+                                           stage, opts, ropts, pix_per_frame,
+                                           exposure)
             else:
                 loss, aux = _map_loss(dec, feat_v, map_pos, grid, kf_color,
                                       kf_depth, kf_c2w, kf_rq, draw, stage,
-                                      opts, ropts, pix_per_frame)
-            grads = torch.autograd.grad(loss, params + [feat_v],
+                                      opts, ropts, pix_per_frame, exposure)
+            grads = torch.autograd.grad(loss, params + [feat_v] + exp_v,
                                         allow_unused=True)
+            n = len(params)
             grads = [g if (on and g is not None) else None
-                     for g, on in zip(grads[:-1], dec_on)] \
-                + [grads[-1] * fm if grads[-1] is not None else None]
+                     for g, on in zip(grads[:n], dec_on)] \
+                + [grads[n] * fm if grads[n] is not None else None] \
+                + list(grads[n + 1:])
             with torch.no_grad():
                 new, adam_state = adam.update(
-                    [p.detach() for p in params] + [feat_v.detach()], grads,
-                    adam_state, lr_list)
-                for p, q in zip(params, new[:-1]):
+                    [p.detach() for p in params] + [feat_v.detach()]
+                    + [e.detach() for e in exp_v], grads, adam_state,
+                    lr_list)
+                for p, q in zip(params, new[:n]):
                     p.copy_(q)
-                feat = new[-1]
+                feat = new[n]
+                extra = new[n + 1:]
+    if with_exp:
+        return feat, adam_state, aux, extra[0]
     return feat, adam_state, aux
 
 
 optimize_map = _optimize_map_impl
+
+
+def stage_chunks(n_geo: int, n_col: int, chunk: int):
+    """A mapping frame's budget as optimize_map calls: (geometry iters,
+    color iters, first chunk of its stage) for the geometry stage in
+    chunks of `chunk`, then the color stage in chunks of `chunk`; no chunk
+    holds both stages, so the session can start the color stage's leaves
+    afresh between them (start_color_stage)."""
+    out = [(min(chunk, n_geo - i), 0, i == 0) for i in range(0, n_geo, chunk)]
+    out += [(0, min(chunk, n_col - i), i == 0) for i in range(0, n_col, chunk)]
+    return out
+
+
+def start_color_stage(adam_state, dec, c: int):
+    """The geometry stage's Adam state with the color leaves started afresh:
+    the color decoder, the color half of the (cap, 2c) features and the
+    exposure latent (the leaves after the features). They had no gradient
+    in the geometry stage.
+
+    The JAX package threads one state, with one step count, from the
+    geometry stage into the color stage. The color leaves' moments are
+    zero there, so a step count of ~400 bias-corrects their first ~100
+    steps to 2-4x the set learning rate; on Replica's first frame that
+    drives the color head into saturation in both packages, which it
+    leaves or not by chance (PERF.md, Findings). The original system's
+    torch.optim.Adam counts a parameter's steps from its first gradient,
+    as this does; the geometry leaves go on."""
+    names = [n for n, _ in dec.named_parameters()]
+    n_extra = len(adam_state.m) - len(names) - 1
+    feat_cols = torch.arange(2 * c, device=adam_state.m[len(names)].device)
+    return adam.restart(adam_state, [n.startswith("col.") for n in names]
+                        + [feat_cols >= c] + [True] * n_extra)
 
 
 # ---------------------------------------------------------------------------

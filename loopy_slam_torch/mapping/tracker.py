@@ -12,7 +12,10 @@ knn_refresh. The loop never reads a device value on the host.
   dynamic gate: |gt-d|/sqrt(var) < 10*mean (handle_dynamic)
   geo loss:     sum clamp(|gt-d|/sqrt(var+1e-10), 0, 1e3)
   color loss:   sum |gt_c - c|; total = geo + w_color*color
-Separate LRs: translation lr, quaternion lr*0.2.
+Separate LRs: translation lr, quaternion lr*0.2. With
+model.encode_exposure the frame's exposure latent (8) and the exposure MLP
+train beside the pose, each at lr 0.001, and the renders go through their
+affine; their final values come back for the session to keep.
 
 Random draws (ops/draws.py), in order. Cached path, per block: the pool's
 pixel rows (P,) then cols (P,) -- or, with a pre-selected pixel pool (the
@@ -24,10 +27,11 @@ one index into the pre-selected pool (pixels,); then the decode noise.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
+from ..models.decoder import ExposureMLP
 from ..models.renderer import (RenderOptions, decode_neighbors,
                                gather_featpos, render_batch_ray)
 from ..ops import adam, knn
@@ -135,10 +139,11 @@ def _pick_pixels(draw, n, gt_color, gt_depth, sel_i, sel_j,
 
 def tracking_loss(cam7, dec, map_pos, grid, feats, gt_color, gt_depth, draw,
                   opts: TrackOptions, ropts: RenderOptions, sel_i=None,
-                  sel_j=None, r_query=None):
+                  sel_j=None, r_query=None, exposure=None):
     """Sample pixels (from the pool sel_i/sel_j if given), render at pose
     cam7 with the (H, W) query-radius map r_query if given, compute the
-    tracking loss."""
+    tracking loss. exposure: (latent, ExposureMLP) with encode_exposure,
+    else None."""
     c2w = c2w_from_tensor(cam7)
     i, j, d, c, valid = _pick_pixels(draw, opts.pixels, gt_color, gt_depth,
                                      sel_i, sel_j, opts)
@@ -146,9 +151,10 @@ def tracking_loss(cam7, dec, map_pos, grid, feats, gt_color, gt_depth, draw,
                                   opts.cy)
     rq = None if r_query is None else r_query[j.long(), i.long()]
     inside = inside_mask_from_depth(d, valid) & valid
+    ef, mlp = exposure if exposure is not None else (None, None)
     depth, var, color, _ = render_batch_ray(
         dec, map_pos, grid, feats, rays_o, rays_d, d, inside, draw, ropts,
-        "color", r_query=rq)
+        "color", r_query=rq, exposure_feat=ef, exposure_mlp=mlp)
     return _loss_from_render(d, c, inside, depth, var, color, opts)
 
 
@@ -184,7 +190,7 @@ def _build_track_cache(cam7, map_pos, grid, feats, gt_color, gt_depth, draw,
 
 
 def tracking_loss_cached(cam7, dec, cache, draw, opts: TrackOptions,
-                         ropts: RenderOptions):
+                         ropts: RenderOptions, exposure=None):
     """tracking_loss with the k-NN + gather served from the block pool: a
     fresh `pixels` subset per iteration, pose-dependent terms recomputed."""
     c2w = c2w_from_tensor(cam7)
@@ -209,8 +215,10 @@ def tracking_loss_cached(cam7, dec, cache, draw, opts: TrackOptions,
                if ropts.use_view_direction else None)
     rq = (ropts.radius_query if cache["rq"] is None
           else torch.repeat_interleave(take(cache["rq"]), S))
+    ef, mlp = exposure if exposure is not None else (None, None)
     occ, rgb, _has = decode_neighbors(
-        dec, pts, draw, ropts, "color", D_idx, both, nn, rq, views_d=views_d)
+        dec, pts, draw, ropts, "color", D_idx, both, nn, rq, views_d=views_d,
+        exposure_feat=ef, exposure_mlp=mlp)
     depth, var, color, _ = composite(
         rgb.reshape(R, S, 3), occ.reshape(R, S), z, ropts.sigmoid_coef)
     depth = torch.where(d > 0, depth, torch.zeros((), device=d.device))
@@ -263,19 +271,43 @@ def warmup_blocks(iters: int, refresh: int) -> List[int]:
     return lengths
 
 
+class TrackResult(NamedTuple):
+    """track_frame's outputs, device tensors: the accepted pose 7-vector
+    and 4x4, the first and best loss, the health gate's state, and with
+    encode_exposure the final exposure latent and MLP (else None)."""
+
+    cam7: torch.Tensor
+    c2w44: torch.Tensor
+    first_loss: torch.Tensor
+    best_loss: torch.Tensor
+    health: torch.Tensor
+    exposure_feat: Optional[torch.Tensor] = None
+    exposure_mlp: Optional[ExposureMLP] = None
+
+
 def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
                       cam7_init, draw, opts: TrackOptions,
                       ropts: RenderOptions, health=None, sel_i=None,
-                      sel_j=None, r_query=None):
-    """Optimize the camera pose for one frame. sel_i/sel_j: a pool of
+                      sel_j=None, r_query=None, exposure_feat=None
+                      ) -> TrackResult:
+    """Optimize the camera pose (and with ropts.encode_exposure the
+    exposure latent, from exposure_feat or zeros, and the exposure MLP,
+    from dec.col.exposure) for one frame. sel_i/sel_j: a pool of
     pre-selected pixels (cols, rows; the color-gradient picks) to draw
     from instead of the whole frame; r_query: the frame's (H, W) query
-    radius map (the dynamic radius). Returns (best_cam7, best_c2w44,
-    first_loss, best_loss, health'), all device tensors."""
+    radius map (the dynamic radius)."""
     dev = cam7_init.device
     lr_cam = _lr_vector(opts, dev)
     cam = cam7_init.detach().clone()
-    st = adam.init([cam])
+    # the optimized variables: the pose, then the exposure latent and MLP
+    extra: List[torch.Tensor] = []
+    if ropts.encode_exposure:
+        e = dec.col.exposure
+        ef = (torch.zeros(e.w1.shape[0], device=dev) if exposure_feat is None
+              else exposure_feat)
+        extra = [t.detach().clone() for t in (ef, e.w1, e.b1, e.w2, e.b2)]
+    lrs = [lr_cam] + [0.001] * len(extra)
+    st = adam.init([cam] + extra)
     best_loss = torch.full((), float("inf"), device=dev)
     best_cam = cam7_init.detach().clone()
     best_nm = torch.zeros((), device=dev)
@@ -284,12 +316,14 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
     feats = feats.detach()
 
     def step(loss_fn):
-        nonlocal cam, st, best_loss, best_cam, best_nm
-        cam_v = cam.requires_grad_(True)
-        loss, aux = loss_fn(cam_v)
-        (g,) = torch.autograd.grad(loss, [cam_v])
+        nonlocal cam, extra, st, best_loss, best_cam, best_nm
+        vs = [v.requires_grad_(True) for v in [cam] + extra]
+        exposure = ((vs[1], ExposureMLP(*vs[2:])) if extra else None)
+        loss, aux = loss_fn(vs[0], exposure)
+        grads = torch.autograd.grad(loss, vs)
         loss = loss.detach()
-        (cam,), st = adam.update([cam_v.detach()], [g], st, [lr_cam])
+        new, st = adam.update([v.detach() for v in vs], grads, st, lrs)
+        cam, extra = new[0], new[1:]
         better = loss < best_loss
         best_loss = torch.where(better, loss, best_loss)
         best_cam = torch.where(better, cam, best_cam)
@@ -304,16 +338,16 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
                     cam, map_pos, grid, feats, gt_color, gt_depth, draw,
                     opts, ropts, sel_i, sel_j, r_query)
             for _ in range(blk_len):
-                loss = step(lambda c7: tracking_loss_cached(
-                    c7, dec, cache, draw, opts, ropts))
+                loss = step(lambda c7, ex: tracking_loss_cached(
+                    c7, dec, cache, draw, opts, ropts, ex))
                 if n_done == 0:
                     first_loss = loss
                 n_done += 1
     else:
         for _ in range(opts.iters):
-            loss = step(lambda c7: tracking_loss(
+            loss = step(lambda c7, ex: tracking_loss(
                 c7, dec, map_pos, grid, feats, gt_color, gt_depth, draw,
-                opts, ropts, sel_i, sel_j, r_query))
+                opts, ropts, sel_i, sel_j, r_query, ex))
             if n_done == 0:
                 first_loss = loss
             n_done += 1
@@ -327,7 +361,9 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
             total_px=float(opts.pixels))
     with torch.no_grad():
         best_c2w44 = c2w_to_4x4(c2w_from_tensor(out_cam))
-    return out_cam, best_c2w44, first_loss, best_loss, health_out
+    return TrackResult(out_cam, best_c2w44, first_loss, best_loss,
+                       health_out, extra[0] if extra else None,
+                       ExposureMLP(*extra[1:]) if extra else None)
 
 
 track_frame = _track_frame_impl

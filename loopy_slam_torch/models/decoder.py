@@ -12,6 +12,9 @@ parameter trees load unchanged (convert.py).
     with softplus(beta=100), feature injection, skip at 2, 3-channel head.
   neighbor transform (color): [fourier(rel_pos; 3x10, sin||cos) || feat]
     -> Dense 52->128 -> softplus100 -> Dense 128->32.
+  exposure MLP (model.encode_exposure): latent (8) -> Dense 8->128 ->
+    softplus100 -> Dense 128->12, read as a 3x3 color rotation and a
+    translation of 3 (exposure_affine).
 
 bf16 trunks (on by default, as in the reference): the trunk matmuls round
 their INPUTS to bf16 and accumulate in f32, returning the f32 sum unrounded.
@@ -23,7 +26,7 @@ bf16 values are exact in f32).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import torch
 from torch import nn
@@ -251,6 +254,26 @@ def neighbor_transform(col, feats, rel_pos):
     x = torch.cat([emb, feats], dim=-1)
     h = softplus100(_mm(x, col.neigh.w1, col.bf16) + col.neigh.b1)
     return _mm(h, col.neigh.w2, col.bf16) + col.neigh.b2
+
+
+class ExposureMLP(NamedTuple):
+    """The exposure MLP's parameters as plain tensors: the tracker's
+    trainable copy of dec.col.exposure (which has the same attributes)."""
+
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+
+
+def exposure_affine(exposure, exposure_feat):
+    """Latent (..., 8) -> (rot (..., 3, 3), trans (..., 3)), the color
+    affine of a frame's exposure (a batch of latents gives one affine
+    each). exposure: the MLP's parameters (dec.col.exposure or an
+    ExposureMLP); f32 matmuls, not the trunks' bf16."""
+    h = softplus100(exposure_feat @ exposure.w1 + exposure.b1)
+    a = h @ exposure.w2 + exposure.b2
+    return a[..., :9].reshape(*a.shape[:-1], 3, 3), a[..., 9:]
 
 
 def interp_weights(D, r2_bound, weighting="distance"):

@@ -6,6 +6,12 @@ geometry and color decoders, and one gather fetches the packed
 differentiably from the gathered positions, so pose gradients flow through
 the sample positions and feature gradients through the gathered features.
 
+With model.encode_exposure, the color head goes through a frame's
+exposure affine before its soft clamp and sigmoid: the one of the latent
+`exposure_feat` when one is given (tracking, renders), else none at all:
+the raw logits come back so that the mapper can apply each window frame's
+own affine to its composited colors.
+
 Random draws (ops/draws.py), in order, per decode: the geometry noise
 features (N, c), then, in the color stage, the color noise features (N, c).
 """
@@ -19,8 +25,9 @@ import torch
 from ..ops import knn
 from ..ops.compositing import composite
 from ..ops.sampling import pixels_to_points, surface_z_vals
-from .decoder import (col_forward, geo_forward, interp_weights,
-                      interpolate_features, neighbor_transform)
+from .decoder import (col_forward, exposure_affine, geo_forward,
+                      interp_weights, interpolate_features,
+                      neighbor_transform)
 
 
 class RenderOptions(NamedTuple):
@@ -97,24 +104,32 @@ def gather_featpos(feats, map_pos, I):
 
 
 def eval_points(dec, map_pos, grid, feats, pts, draw, opts: RenderOptions,
-                stage: str, views_d=None, r_query=None):
+                stage: str, views_d=None, r_query=None, exposure_feat=None,
+                exposure_mlp=None):
     """Decode occupancy (and color) at sample positions (N, 3) with the
     query radius r_query, a (N,) tensor of per-sample radii or None for
     opts.radius_query. Returns (occ_logits (N,), rgb (N,3),
-    has_neighbors (N,))."""
+    has_neighbors (N,)); rgb is post-sigmoid unless encode_exposure with
+    no exposure_feat (see decode_neighbors)."""
     rq = opts.radius_query if r_query is None else r_query
     D_idx, I, nn_count = knn.query(grid, map_pos, pts.detach(), opts.nn_num,
                                    rq)
     both = gather_featpos(feats, map_pos, I)
     return decode_neighbors(dec, pts, draw, opts, stage, D_idx, both,
-                            nn_count, rq, views_d)
+                            nn_count, rq, views_d, exposure_feat,
+                            exposure_mlp)
 
 
 def decode_neighbors(dec, pts, draw, opts: RenderOptions, stage: str,
-                     D_idx, both, nn_count, rq, views_d=None):
+                     D_idx, both, nn_count, rq, views_d=None,
+                     exposure_feat=None, exposure_mlp=None):
     """Decode occupancy/color from already-fetched neighbour data. `both`
     is the gathered (N, k, 2c+3) block; D_idx the index distances (only
-    thresholded); distances are recomputed from the gathered positions."""
+    thresholded); distances are recomputed from the gathered positions.
+    With opts.encode_exposure, the color logits go through the affine of
+    the latent exposure_feat (by exposure_mlp's parameters, else
+    dec.col.exposure) before the clamp and sigmoid; without a latent they
+    come back raw, for the caller to apply the exposure."""
     n = pts.shape[0]
     c = opts.c_dim
     geo_n, col_n = both[..., :c], both[..., c:2 * c]
@@ -146,7 +161,14 @@ def decode_neighbors(dec, pts, draw, opts: RenderOptions, stage: str,
                                  draw.normal((n, c)))
     rgb = col_forward(dec.col, pts, c_col, views_d, opts.use_view_direction,
                       opts.encode_viewd)
-    rgb = torch.sigmoid(soft_clamp_logits(rgb))
+    if opts.encode_exposure:
+        if exposure_feat is not None:
+            rot, trans = exposure_affine(
+                dec.col.exposure if exposure_mlp is None else exposure_mlp,
+                exposure_feat)
+            rgb = torch.sigmoid(soft_clamp_logits(rgb @ rot + trans))
+    else:
+        rgb = torch.sigmoid(soft_clamp_logits(rgb))
     return occ, rgb, has_neighbors
 
 
@@ -172,12 +194,13 @@ def soft_clamp_logits(x):
 
 def render_batch_ray(dec, map_pos, grid, feats, rays_o, rays_d, gt_depth,
                      ray_valid, draw, opts: RenderOptions, stage: str,
-                     r_query=None):
+                     r_query=None, exposure_feat=None, exposure_mlp=None):
     """Render a fixed-size batch of rays. `r_query` is a per-ray (R,)
     query radius (the dynamic radius), repeated once per sample, or None
-    for opts.radius_query. Returns (depth, depth_var, color,
-    valid_ray_mask), each (R, ...). The sample-near-pcl z-vals of the
-    reference are not ported (see LoopySLAM's config check)."""
+    for opts.radius_query; exposure_feat/exposure_mlp: the exposure
+    latent and MLP (see decode_neighbors). Returns (depth, depth_var,
+    color, valid_ray_mask), each (R, ...). The sample-near-pcl z-vals of
+    the reference are not ported (see LoopySLAM's config check)."""
     if opts.sample_near_pcl:
         raise NotImplementedError(
             "rendering.sample_near_pcl is not ported yet (ROADMAP.md "
@@ -195,7 +218,7 @@ def render_batch_ray(dec, map_pos, grid, feats, rays_o, rays_d, gt_depth,
         rq = torch.repeat_interleave(r_query.reshape(-1), S, dim=0)
     occ, rgb, has_neighbors = eval_points(
         dec, map_pos, grid, feats, pts, draw, opts, stage, views_d=views_d,
-        r_query=rq)
+        r_query=rq, exposure_feat=exposure_feat, exposure_mlp=exposure_mlp)
     valid_ray = torch.sum(has_neighbors.reshape(R, S), dim=-1) >= (S // 2 + 1)
     depth, depth_var, color, _ = composite(
         rgb.reshape(R, S, 3), occ.reshape(R, S), z_vals, opts.sigmoid_coef)

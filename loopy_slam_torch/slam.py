@@ -19,6 +19,15 @@ moves segments, trajectory and the device map rigidly. With
 mapping.color_refine, the last frame is mapped again over the merged
 global map of all segments, with the segment anchors as the window.
 
+With model.encode_exposure (ScanNet), each frame has an exposure latent:
+the tracker optimizes it with the exposure MLP beside the pose and hands
+both to the session; keyframes keep theirs; the mapper applies each
+window frame's own affine and trains the current frame's latent; each
+mapped frame's latent and a snapshot of the color decoder
+(ckpts/color_decoder/<idx>.pkl) are kept so that final_eval renders the
+frame as it was mapped. Ground-truth poses that are not finite (ScanNet
+marks frames without one so) are skipped wherever the session reads them.
+
 With use_dynamic_radius, each frame's color gradient (on the host) sets
 per-pixel add and query radii: insertion gates, tracking, mapping (each
 keyframe keeps its query-radius map) and renders use them. With
@@ -47,7 +56,8 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .convert import decoders_from_numpy, decoders_to_numpy
+from .convert import (decoders_from_numpy, decoders_to_numpy,
+                      exposure_state_from_numpy)
 from .mapping import mapper as mapper_mod
 from .mapping import tracker as tracker_mod
 from .mapping.fragments import FragmentManager
@@ -94,8 +104,9 @@ def update_cam(cfg) -> Dict[str, float]:
 def check_slice(cfg) -> None:
     """Raise NotImplementedError for any configured feature the port does
     not have yet, naming its ROADMAP.md item. Submaps, loop closure and
-    color refinement (item 10), the visualizer (item 14) and the dynamic
-    radius with the color-gradient picks (item 15) are in."""
+    color refinement (item 10), the visualizer (item 14), the dynamic
+    radius with the color-gradient picks (item 15) and exposure
+    compensation (item 16) are in."""
     m, t = cfg["mapping"], cfg["tracking"]
     seg = m["segment_strategy"]
     if seg not in ("rot_trans", "fixed", "none"):
@@ -106,7 +117,6 @@ def check_slice(cfg) -> None:
         (t["visual_odometer"], "tracking.visual_odometer", 11),
         (int(par.get("n_devices", 0)) > 1 or par.get("map_shard", False),
          "parallel.* (multi-device)", 13),
-        (cfg["model"]["encode_exposure"], "model.encode_exposure", 16),
         (m["BA"], "mapping.BA", 17),
         (cfg["rendering"]["sample_near_pcl"], "rendering.sample_near_pcl", 18),
         (cfg["wandb"], "wandb", 19),
@@ -177,6 +187,14 @@ class LoopySLAM:
             self.dec = decoders_from_numpy(init_params, self.device, bf16)
         self._load_pretrained_geo()
         self.dec_mask = trainable_mask(self.dec, cfg)
+
+        # exposure compensation: the current latent (device), each
+        # keyframe's and each mapped frame's (numpy, by frame index)
+        self.encode_exposure = cfg["model"]["encode_exposure"]
+        self.exposure_feat = torch.zeros(cfg["model"]["exposure_dim"],
+                                         device=self.device)
+        self.kf_exposure: Dict[int, np.ndarray] = {}
+        self.mapped_exposure: Dict[int, np.ndarray] = {}
 
         self.initial_capacity = int(cfg["pointcloud"].get(
             "initial_capacity", 2 ** 15))
@@ -394,11 +412,21 @@ class LoopySLAM:
                 sel_i, sel_j = flat_t % self.W, flat_t // self.W
 
         s = self.map_state
-        (_, best_c2w44, first_loss, best_loss,
-         self.track_health) = tracker_mod.track_frame(
+        res = tracker_mod.track_frame(
             self.dec, s.pos, s.grid, s.feat, color, depth, cam7, self.draw,
             self.topts, self.ropts_tracker, health=self.track_health,
-            sel_i=sel_i, sel_j=sel_j, r_query=self.cur_r_query)
+            sel_i=sel_i, sel_j=sel_j, r_query=self.cur_r_query,
+            exposure_feat=(self.exposure_feat if self.encode_exposure
+                           else None))
+        first_loss, best_loss = res.first_loss, res.best_loss
+        self.track_health = res.health
+        if self.encode_exposure:
+            # the tracker co-optimized the latent and the exposure MLP;
+            # both are shared with the mapper
+            self.exposure_feat = res.exposure_feat
+            with torch.no_grad():
+                for name, v in res.exposure_mlp._asdict().items():
+                    getattr(self.dec.col.exposure, name).copy_(v)
         if self.verbose:
             print(f"idx:{idx}, re-rendering loss: "
                   f"{float(first_loss):.2f}->{float(best_loss):.2f}")
@@ -408,7 +436,7 @@ class LoopySLAM:
                 print(f"idx:{idx}, tracking health gate: pose update "
                       f"REJECTED (total {int(th[1])}), kept motion-model "
                       f"pose; loss ema {th[0]:.3f}")
-        return best_c2w44.cpu().numpy()
+        return res.c2w44.cpu().numpy()
 
     # ------------------------------------------------------------------
     def _maybe_grow_capacity(self, headroom: int = 6000):
@@ -652,6 +680,8 @@ class LoopySLAM:
             self.kf_rq[slot] = self.cur_r_query
         self.kf_est_c2w[idx] = cur_c2w.copy()
         self.kf_gt_c2w[idx] = gt_c2w.copy()
+        if self.encode_exposure:
+            self.kf_exposure[idx] = self.exposure_feat.cpu().numpy()
 
     def _window(self, sources: List[Optional[int]], color, depth, cur_c2w):
         """Stack the optimization window; `sources` entries are keyframe
@@ -788,6 +818,7 @@ class LoopySLAM:
             krq = (self.cur_r_query[None].expand(kc.shape[0], -1, -1)
                    if self.use_dynamic_radius else None)
             pix_per_frame = max(m["pixels"] // 10, 1)
+            exp_src = [f.start_idx for f in frags]
         else:
             k = self.mapping_window_size - 2
             window: List[Optional[int]] = []
@@ -813,6 +844,19 @@ class LoopySLAM:
             window = list(window) + pads + [None]
             pix_per_frame = max(m["pixels"] // len(window), 1)
             kc, kd, kp, krq = self._window(window, color, depth, cur_c2w)
+            exp_src = window[:-1]  # the last is the current frame
+
+        # the window's exposure latents: each keyframe's own (zeros for a
+        # frame without one), the current latent for the current frame
+        # (the last row, which the mapper replaces by the trainable one)
+        kf_exp = exp = None
+        if self.encode_exposure:
+            cur = self.exposure_feat.cpu().numpy()
+            zeros = np.zeros_like(cur)
+            rows = [cur if i is None else self.kf_exposure.get(i, zeros)
+                    for i in exp_src] + [cur]
+            kf_exp = torch.as_tensor(np.stack(rows), device=self.device)
+            exp = self.exposure_feat
 
         # ---------------- iteration schedule ----------------
         num = m["iters_first"] if init else m["iters"]
@@ -839,25 +883,38 @@ class LoopySLAM:
 
         # the iteration budget runs in chunks of device_chunk_iters; each
         # chunk rebuilds the ray pool (and its k-NN) and the Adam state
-        # threads on; each outer round of color refinement restarts Adam
-        # (its step count included)
+        # threads on; the color stage starts its leaves afresh
+        # (mapper.start_color_stage), and each outer round of color
+        # refinement restarts Adam (its step count included)
         chunk = int(m.get("device_chunk_iters", 64))
         feat = self.map_state.feat
         aux = None
         for _ in range(5 if color_refine else 1):
             st = None
-            done_geo, done_col = 0, 0
-            while done_geo + done_col < n_geo + n_col:
-                g = min(chunk, n_geo - done_geo)
-                c = min(chunk - g, n_col - done_col)
-                feat, st, aux = mapper_mod.optimize_map(
+            for g, c, first in mapper_mod.stage_chunks(n_geo, n_col, chunk):
+                if c and first and st is not None:
+                    st = mapper_mod.start_color_stage(st, self.dec,
+                                                      feat.shape[1] // 2)
+                out = mapper_mod.optimize_map(
                     self.dec, feat, st, dec_mask, feat_mask,
                     self.map_state.pos, self.map_state.grid, kc, kd, kp,
                     self.draw, g, c, lrs_geo, lrs_col, self.mopts,
-                    self.ropts_mapper, pix_per_frame, kf_rq=krq)
-                done_geo += g
-                done_col += c
+                    self.ropts_mapper, pix_per_frame, kf_rq=krq,
+                    kf_exposure=kf_exp, exp=exp)
+                feat, st, aux = out[:3]
+                if self.encode_exposure:
+                    exp = out[3]
         self.map_state = self.map_state._replace(feat=feat)
+        if self.encode_exposure:
+            self.exposure_feat = exp
+            if not color_refine:
+                # the latent and the color decoder this frame was mapped
+                # with, for final_eval's renders
+                self.mapped_exposure[idx] = exp.cpu().numpy()
+                cd_dir = os.path.join(self.output, "ckpts", "color_decoder")
+                os.makedirs(cd_dir, exist_ok=True)
+                save_checkpoint(os.path.join(cd_dir, f"{idx:05d}.pkl"),
+                                decoders_to_numpy(self.dec)["col"])
         if self.verbose and aux is not None:
             g_, c_, n_, drop = torch.stack(
                 list(aux) + [self.map_state.grid.n_dropped.float()]
@@ -882,12 +939,17 @@ class LoopySLAM:
     # Full-frame rendering (evaluation and visualization)
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def render_img(self, c2w, gt_depth, chunk: int = 4096, r_query_map=None):
+    def render_img(self, c2w, gt_depth, chunk: int = 4096, r_query_map=None,
+                   exposure_feat=None, col_params=None):
         """Full-frame render at pose c2w (4x4), in the color stage, guided
         by gt_depth (H, W) as the mapper's samples are, with the (H, W)
         query-radius map r_query_map (a device tensor or numpy; None for
-        pointcloud.radius_query). Returns numpy (depth (H, W),
-        color (H, W, 3)).
+        pointcloud.radius_query). With encode_exposure, exposure_feat (8,)
+        is the latent whose affine the colors go through (without one the
+        colors are the raw logits, as the JAX package renders them) and
+        col_params (the JAX layout's color-decoder tree of numpy arrays)
+        a color-decoder snapshot to render with. Returns numpy (depth
+        (H, W), color (H, W, 3)).
 
         The frame goes through the renderer in chunks of `chunk` rays, each
         one k-NN launch over chunk * N_surface samples; the last chunk is
@@ -906,6 +968,13 @@ class LoopySLAM:
             r_query_map, dtype=torch.float32, device=dev).reshape(-1))
         n = rays_o.shape[0]
         s = self.map_state
+        dec = self.dec
+        if col_params is not None:
+            dec = decoders_from_numpy(
+                {"geo": decoders_to_numpy(self.dec)["geo"], "col": col_params},
+                dev, self.cfg["model"].get("bf16_trunks", True))
+        ef = (None if exposure_feat is None else torch.as_tensor(
+            np.asarray(exposure_feat, np.float32), device=dev))
         depths, colors = [], []
         for i in range(0, n, chunk):
             sl = slice(i, i + chunk)
@@ -921,8 +990,8 @@ class LoopySLAM:
                     rqc = torch.cat([rqc, torch.full((pad,), 1e-3,
                                                      device=dev)])
             dep, _, col, _ = render_batch_ray(
-                self.dec, s.pos, s.grid, s.feat, ro, rd, d, d > 0, self.draw,
-                self.ropts_mapper, "color", r_query=rqc)
+                dec, s.pos, s.grid, s.feat, ro, rd, d, d > 0, self.draw,
+                self.ropts_mapper, "color", r_query=rqc, exposure_feat=ef)
             depths.append(dep[:take])
             colors.append(col[:take])
         depth = torch.cat(depths).reshape(self.H, self.W)
@@ -944,23 +1013,16 @@ class LoopySLAM:
         the torch generator state (the port writes it as `rng_key`) and the
         numpy generator state. A JAX checkpoint's `rng_key` is a JAX key,
         which no torch generator can continue: the session then keeps its
-        own generator, seeded from setup_seed. The exposure fields (ROADMAP
-        item 16) must be empty or zero."""
+        own generator, seeded from setup_seed. The exposure state (the
+        current latent, each keyframe's and each mapped frame's) comes back
+        as it was written."""
         ckpt = load_checkpoint(ckpt_path)
         last_idx = int(ckpt["idx"])
         dev = self.device
         r = ckpt["resume"]
-        for name in ("kf_exposure", "mapped_exposure"):
-            if any(np.any(np.asarray(v)) for v in r.get(name, {}).values()):
-                raise NotImplementedError(
-                    f"checkpoint {ckpt_path} carries exposure latents "
-                    f"({name}); model.encode_exposure is not ported yet "
-                    "(ROADMAP.md Queue 1 item 16)")
-        if np.any(np.asarray(r.get("exposure_feat", 0.0))):
-            raise NotImplementedError(
-                f"checkpoint {ckpt_path} carries an exposure latent; "
-                "model.encode_exposure is not ported yet (ROADMAP.md Queue "
-                "1 item 16)")
+        self.exposure_feat, kf_exposure, self.mapped_exposure = \
+            exposure_state_from_numpy(r, self.cfg["model"]["exposure_dim"],
+                                      dev)
         self.dec = decoders_from_numpy(
             ckpt["params"], dev, self.cfg["model"].get("bf16_trunks", True))
         self.dec_mask = trainable_mask(self.dec, self.cfg)
@@ -1043,6 +1105,9 @@ class LoopySLAM:
             self._add_keyframe(kf_idx, color, depth, self.kf_est_c2w[kf_idx],
                                self.kf_gt_c2w.get(kf_idx,
                                                   self.kf_est_c2w[kf_idx]))
+        # the ring's replay stamped the current latent; the keyframes keep
+        # their own
+        self.kf_exposure = kf_exposure
 
         # ---- submaps: the place-recognition database replayed in fragment
         # order (query ids index fragments), the score baselines restored
@@ -1249,9 +1314,20 @@ class LoopySLAM:
                 color, depth = np.load(cpath), np.load(dpath)
                 n_reused += 1
             else:
+                ef = col_params = None
+                if self.encode_exposure:
+                    # under the latent and color-decoder snapshot this frame
+                    # was mapped with (the current ones when it was not)
+                    ef = self.mapped_exposure.get(
+                        idx, self.exposure_feat.cpu().numpy())
+                    cd_path = os.path.join(self.output, "ckpts",
+                                           "color_decoder", f"{idx:05d}.pkl")
+                    if os.path.exists(cd_path):
+                        col_params = load_checkpoint(cd_path)
                 depth, color = self.render_img(
                     self.estimate_c2w[idx], gd,
-                    r_query_map=self._dynamic_radius(gc)[1])
+                    r_query_map=self._dynamic_radius(gc)[1],
+                    exposure_feat=ef, col_params=col_params)
                 if save_renders:
                     np.save(cpath, color)
                     np.save(dpath, depth)
@@ -1289,10 +1365,12 @@ class LoopySLAM:
                 gt_mesh = self.dataset.gt_mesh()
             if gt_mesh is not None and len(faces):
                 # against the ground-truth surface the trajectory observed
+                gt_poses = [self.gt_c2w[i]
+                            for i in range(0, self.n_img, every)
+                            if np.isfinite(self.gt_c2w[i]).all()]
                 gv, gf, _, unseen = cull_mesh(
-                    gt_mesh[0], gt_mesh[1],
-                    [self.gt_c2w[i] for i in range(0, self.n_img, every)],
-                    cam, return_unseen=True)
+                    gt_mesh[0], gt_mesh[1], gt_poses, cam,
+                    return_unseen=True)
                 t0 = time.perf_counter()
                 recon_stats = calc_3d_metric((verts, faces), (gv, gf))
                 t1 = time.perf_counter()
@@ -1342,10 +1420,9 @@ class LoopySLAM:
                 "kf_gt_c2w": self.kf_gt_c2w,
                 "kf_order": sorted(self.kf_slot_of_idx,
                                    key=self.kf_slot_of_idx.get),
-                "kf_exposure": {},
-                "mapped_exposure": {},
-                "exposure_feat": np.zeros(
-                    (self.cfg["model"]["exposure_dim"],), np.float32),
+                "kf_exposure": self.kf_exposure,
+                "mapped_exposure": self.mapped_exposure,
+                "exposure_feat": self.exposure_feat.cpu().numpy(),
                 "track_health": self.track_health.cpu().numpy(),
                 "prev_mapped_idx": self.prev_mapped_idx,
                 "fragments": self.fm.fragments,

@@ -1,6 +1,7 @@
-"""Write the procedural Synthetic scene to disk as a TUM RGB-D sequence,
-without cv2 (the card's machine has none):
+"""Write the procedural Synthetic scene to disk as a TUM RGB-D, ScanNet or
+Replica sequence, without cv2 (the card's machine has none).
 
+TUM (--format tum):
   rgb/<t>.png     8-bit RGB, distorted with freiburg1's published
                   coefficients, so the loader's undistortion must recover
                   the pinhole render;
@@ -11,16 +12,35 @@ without cv2 (the card's machine has none):
                   dropped, poses at 100 Hz as tx ty tz qx qy qz qw of the
                   Y/Z-flipped c2w.
 
-It is the port's counterpart of the TUM part of
-scripts/make_sensor_fixtures.py and draws the same numbers from the same
-seed, so the text files are the same; the distortion inverts the model by
+ScanNet (--format scannet):
+  frames/color/<i>.jpg  1296x968 JPEG (quality 90) with a per-frame
+                        exposure gain and channel tint, which the
+                        encode_exposure path must absorb;
+  frames/depth/<i>.png  640x480 16-bit at 1000 per meter, with holes;
+  frames/pose/<i>.txt   the Y/Z-flipped 4x4 c2w, inf for a few frames
+                        drawn from the seed (real scans have such poses).
+
+Replica (--format replica):
+  results/frame%06d.jpg  680x1200 JPEG (quality 92);
+  results/depth%06d.png  16-bit at 6553.5 per meter;
+  traj.txt               the Y/Z-flipped c2w of each frame, one line each.
+
+These are the port's counterparts of scripts/make_sensor_fixtures.py (TUM,
+ScanNet) and scripts/make_replica_fixture.py and draw the same numbers
+from the same seeds, so the text files are the same and the images come
+from the same renders. The JPEGs go through the port's writer, which
+writes the bytes libjpeg-turbo writes; the distortion inverts the model by
 OpenCV's iterative undistortPoints scheme and samples the clean image
 bilinearly with edges replicated, as OpenCV 5's remap does; the holes are
 filled ellipses as a numpy mask (cv2.ellipse draws a polygon, so a hole's
 edge can differ by a pixel).
 
-    python -m loopy_slam_torch.tools.make_sensor_fixtures \\
+    python -m loopy_slam_torch.tools.make_sensor_fixtures --format tum \\
         --out data/TUM_RGBD/rgbd_dataset_freiburg1_desk --frames 120
+    python -m loopy_slam_torch.tools.make_sensor_fixtures --format scannet \\
+        --out data/ScanNet/scans/scene0000_00 --frames 400
+    python -m loopy_slam_torch.tools.make_sensor_fixtures --format replica \\
+        --out data/Replica/room0 --frames 2000
 """
 
 from __future__ import annotations
@@ -33,12 +53,21 @@ import numpy as np
 
 from ..config import DEFAULTS, update_recursive
 from ..utils.datasets import Synthetic, _flip_yz
-from ..utils.imageio import write_png
+from ..utils.imageio import write_jpeg, write_png
 
 TUM_CAM = {"H": 480, "W": 640, "fx": 517.3, "fy": 516.5,
            "cx": 318.6, "cy": 255.3, "png_depth_scale": 5000.0,
            "crop_edge": 0}
 TUM_DIST = np.array([0.2624, -0.9531, -0.0054, 0.0026, 1.1633])
+
+SCANNET_DEPTH_CAM = {"H": 480, "W": 640, "fx": 577.6, "fy": 578.7,
+                     "cx": 319.5, "cy": 239.5, "png_depth_scale": 1000.0,
+                     "crop_edge": 0}
+SCANNET_COLOR_HW = (968, 1296)
+
+REPLICA_CAM = {"H": 680, "W": 1200, "fx": 600.0, "fy": 600.0,
+               "cx": 599.5, "cy": 339.5, "png_depth_scale": 6553.5,
+               "crop_edge": 0}
 
 
 def scale_cam(cam, scale: int):
@@ -56,13 +85,13 @@ def scale_cam(cam, scale: int):
     return out
 
 
-def make_dataset(cam, n_frames, motion_speed):
+def make_dataset(cam, n_frames, motion_speed, scene=None):
     cfg = copy.deepcopy(DEFAULTS)
-    update_recursive(cfg, {
-        "dataset": "synthetic",
-        "cam": dict(cam),
-        "data": {"n_frames": n_frames, "motion_speed": motion_speed},
-    })
+    data = {"n_frames": n_frames, "motion_speed": motion_speed}
+    if scene is not None:
+        data["scene"] = scene
+    update_recursive(cfg, {"dataset": "synthetic", "cam": dict(cam),
+                           "data": data})
     return Synthetic(cfg)
 
 
@@ -189,20 +218,102 @@ def write_tum(out, frames, motion_speed, seed=7, scale=1):
     return {"rgb": len(rgb_rows), "depth": len(depth_rows), "cam": cam}
 
 
+def write_scannet(out, frames, motion_speed, seed=11, scale=1):
+    """Returns {"frames", "bad_poses" (sorted frame indices with inf
+    poses), "cam" (the depth camera)}."""
+    dcam = scale_cam(SCANNET_DEPTH_CAM, scale)
+    depth_ds = make_dataset(dcam, frames, motion_speed)
+    ch, cw = SCANNET_COLOR_HW[0] // scale, SCANNET_COLOR_HW[1] // scale
+    sx, sy = cw / dcam["W"], ch / dcam["H"]
+    color_cam = dict(dcam, H=ch, W=cw, fx=dcam["fx"] * sx,
+                     fy=dcam["fy"] * sy, cx=dcam["cx"] * sx,
+                     cy=dcam["cy"] * sy)
+    color_ds = make_dataset(color_cam, frames, motion_speed)
+    rng = np.random.default_rng(seed)
+    base = os.path.join(out, "frames")
+    for sub in ("color", "depth", "pose"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    bad_poses = set(int(i) for i in
+                    rng.choice(frames, size=max(frames // 200, 1),
+                               replace=False) if i > 1)
+    for i in range(frames):
+        c2w = depth_ds.poses[i]
+        color, _ = color_ds.render_frame(c2w)
+        _, depth = depth_ds.render_frame(c2w)
+        # per-frame exposure: a smooth gain sweep and a slight channel tint
+        gain = 1.0 + 0.25 * np.sin(2 * np.pi * i / 120.0)
+        tint = 1.0 + 0.06 * np.sin(2 * np.pi * i / 90.0
+                                   + np.array([0.0, 2.1, 4.2]))
+        exposed = np.clip(color * gain * tint, 0.0, 1.0)
+        write_jpeg(os.path.join(base, "color", f"{i}.jpg"),
+                   (exposed * 255.0).round().astype(np.uint8), 90)
+        depth_h = punch_holes(depth, rng, n_holes=3, frac=0.005)
+        d16 = np.clip(depth_h * dcam["png_depth_scale"],
+                      0, 65535).astype(np.uint16)
+        write_png(os.path.join(base, "depth", f"{i}.png"), d16)
+        m = np.full((4, 4), np.inf) if i in bad_poses else _flip_yz(c2w)
+        np.savetxt(os.path.join(base, "pose", f"{i}.txt"), m)
+    return {"frames": frames, "bad_poses": sorted(bad_poses), "cam": dcam}
+
+
+def write_replica(out, frames, motion_speed, quality=92, scene="v2"):
+    """Returns {"frames", "cam"}."""
+    ds = make_dataset(REPLICA_CAM, frames, motion_speed, scene)
+    res = os.path.join(out, "results")
+    os.makedirs(res, exist_ok=True)
+    scale = REPLICA_CAM["png_depth_scale"]
+    for i in range(frames):
+        color, depth = ds.render_frame(ds.poses[i])
+        write_jpeg(os.path.join(res, f"frame{i:06d}.jpg"),
+                   (color * 255.0).round().astype(np.uint8), quality)
+        write_png(os.path.join(res, f"depth{i:06d}.png"),
+                  np.clip(depth * scale, 0, 65535).astype(np.uint16))
+    # the loader flips Y and Z on read (an involution)
+    with open(os.path.join(out, "traj.txt"), "w") as f:
+        for c2w in ds.poses:
+            f.write(" ".join(f"{v:.9g}" for v in _flip_yz(c2w).reshape(-1))
+                    + "\n")
+    return {"frames": frames, "cam": dict(REPLICA_CAM)}
+
+
+# per format: the orbit step a frame when --motion-speed is not given (the
+# JAX package's scripts' defaults: a revisit every ~200 frames for TUM and
+# ScanNet, two orbits over Replica's 2000 frames)
+DEFAULT_SPEED = {"tum": 1.0 / 200.0, "scannet": 1.0 / 200.0,
+                 "replica": 1.0 / 1000.0}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--format", choices=("tum", "scannet", "replica"),
+                    default="tum")
     ap.add_argument("--out", required=True)
     ap.add_argument("--frames", type=int, default=120)
-    ap.add_argument("--motion-speed", type=float, default=1.0 / 200.0,
-                    help="orbit step a frame (the default revisits every "
-                         "~200 frames)")
+    ap.add_argument("--motion-speed", type=float, default=None,
+                    help="orbit step a frame (default: " + ", ".join(
+                        f"{k} {v:g}" for k, v in DEFAULT_SPEED.items())
+                    + ")")
     ap.add_argument("--scale", type=int, default=1,
-                    help="integer camera downscale (small test sequences)")
+                    help="integer camera downscale (small test sequences; "
+                         "TUM and ScanNet)")
+    ap.add_argument("--jpeg-quality", type=int, default=92,
+                    help="Replica's JPEG quality")
+    ap.add_argument("--scene", default="v2", choices=("v2", "v3"),
+                    help="Replica's procedural scene version")
     args = ap.parse_args(argv)
-    info = write_tum(args.out, args.frames, args.motion_speed,
-                     scale=args.scale)
-    print(f"wrote TUM fixture: {info['rgb']} rgb / {info['depth']} depth "
-          f"frames to {args.out}")
+    speed = args.motion_speed or DEFAULT_SPEED[args.format]
+    if args.format == "tum":
+        info = write_tum(args.out, args.frames, speed, scale=args.scale)
+        print(f"wrote TUM fixture: {info['rgb']} rgb / {info['depth']} "
+              f"depth frames to {args.out}")
+    elif args.format == "scannet":
+        info = write_scannet(args.out, args.frames, speed, scale=args.scale)
+        print(f"wrote ScanNet fixture: {args.frames} frames to {args.out} "
+              f"({len(info['bad_poses'])} invalid poses)")
+    else:
+        write_replica(args.out, args.frames, speed, args.jpeg_quality,
+                      args.scene)
+        print(f"wrote Replica fixture: {args.frames} frames to {args.out}")
 
 
 if __name__ == "__main__":

@@ -1,27 +1,30 @@
 """RGBD datasets for the port (numpy only, no cv2): the file path of
-`BaseDataset`, the `TUM_RGBD` loader and the procedural `Synthetic` room,
-copied from loopy_slam_tpu/utils/datasets.py.
+`BaseDataset`, the `Replica`, `ScanNet` and `TUM_RGBD` loaders and the
+procedural `Synthetic` room, copied from loopy_slam_tpu/utils/datasets.py.
 
 `__getitem__` -> (index, color float HxWx3 in [0,1] RGB, depth float HxW in
 meters, gt c2w 4x4 float32), numpy arrays. Files are read by the port's
-own PNG reader (utils/imageio.py); color is undistorted (depth is not)
-with the camera's `distortion`, then both are cropped by `crop_edge`.
-Every loader flips the Y and Z columns of c2w (OpenGL convention).
+own PNG and JPEG readers (utils/imageio.py); color is undistorted (depth
+is not) with the camera's `distortion`, resized to depth's size when it
+differs (ScanNet's 1296x968 color over 640x480 depth), then both are
+cropped by `crop_edge`. Every loader flips the Y and Z columns of c2w
+(OpenGL convention); ScanNet's invalid ground-truth poses stay inf.
 `Synthetic.gt_mesh` is the room's analytic ground-truth mesh for the
-reconstruction metrics. Not ported yet (ROADMAP.md Queue 1 item 11): the
-JPEG color of Replica, ScanNet and Azure, CoFusion's EXR depth, the
-`crop_size` resize and color of another size than depth; the loader
-raises for each.
+reconstruction metrics. Not ported yet (ROADMAP.md Queue 1 item 11b-iii):
+the Azure and CoFusion loaders, CoFusion's EXR depth and the `crop_size`
+resize; the loader raises for the last two.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .imageio import read_png, remap_linear, undistort_map
+from .imageio import (read_jpeg, read_png, remap_linear, resize_linear,
+                      undistort_map)
 
 
 def as_intrinsics_matrix(intr) -> np.ndarray:
@@ -70,8 +73,10 @@ class BaseDataset:
     def _read_color(self, path: str) -> np.ndarray:
         """uint8 (H, W, 3) RGB, as cv2.imread's color mode then BGR->RGB
         gives it: gray is replicated, alpha dropped."""
+        if path.lower().endswith((".jpg", ".jpeg")):
+            return read_jpeg(path)
         if not path.endswith(".png"):
-            _not_ported(f"color files other than PNG ({path})")
+            raise ValueError(f"unsupported color format: {path}")
         c = read_png(path)
         if c.dtype != np.uint8:
             raise ValueError(f"{path}: 16-bit color is not supported")
@@ -84,18 +89,20 @@ class BaseDataset:
             _not_ported("cam.crop_size (the color/depth resize)")
         color = self._read_color(self.color_paths[index])
         depth = self._read_depth(self.depth_paths[index])
-        if color.shape[:2] != depth.shape:
-            _not_ported(f"color of another size than depth "
-                        f"({color.shape[:2]} vs {depth.shape})")
         if self.distortion is not None:
+            # the color's own size, as cv2.undistort takes it
             taps = self._undistort_taps
-            if taps is None or taps[0].shape[1] != depth.size:
+            hw = color.shape[:2]
+            if taps is None or taps[0].shape[1] != hw[0] * hw[1]:
                 K = as_intrinsics_matrix([self.fx, self.fy, self.cx,
                                           self.cy])
-                taps = undistort_map(K, self.distortion, *depth.shape)
+                taps = undistort_map(K, self.distortion, *hw)
                 self._undistort_taps = taps
             color = remap_linear(color, taps)
         color = color.astype(np.float32) / 255.0
+        # to depth's size (a copy when the sizes agree), as cv2.resize does
+        H, W = depth.shape
+        color = resize_linear(color, (W, H))
         e = self.crop_edge
         if e > 0:
             color = color[e:-e, e:-e]
@@ -108,6 +115,46 @@ def _flip_yz(c2w: np.ndarray) -> np.ndarray:
     c2w[:3, 1] *= -1
     c2w[:3, 2] *= -1
     return c2w
+
+
+class Replica(BaseDataset):
+    """A Replica scene folder: results/frame*.jpg color, results/depth*.png
+    depth and traj.txt, one row-major 4x4 c2w a line."""
+
+    def __init__(self, cfg, input_folder=None):
+        super().__init__(cfg, input_folder)
+        self.color_paths = sorted(
+            glob.glob(f"{self.input_folder}/results/frame*.jpg"))
+        self.depth_paths = sorted(
+            glob.glob(f"{self.input_folder}/results/depth*.png"))
+        self.n_img = len(self.color_paths)
+        with open(f"{self.input_folder}/traj.txt") as f:
+            lines = f.readlines()
+        self.poses = [_flip_yz(np.array(list(map(float, line.split())))
+                               .reshape(4, 4))
+                      for line in lines[:self.n_img]]
+
+
+class ScanNet(BaseDataset):
+    """A ScanNet scene folder: frames/color/<i>.jpg, frames/depth/<i>.png
+    and frames/pose/<i>.txt (a 4x4 c2w, inf where the scan has no valid
+    pose), each sorted by the integer i."""
+
+    def __init__(self, cfg, input_folder=None):
+        super().__init__(cfg, input_folder)
+        base = os.path.join(self.input_folder, "frames")
+
+        def key(p):
+            return int(os.path.basename(p).split(".")[0])
+
+        self.color_paths = sorted(
+            glob.glob(os.path.join(base, "color", "*.jpg")), key=key)
+        self.depth_paths = sorted(
+            glob.glob(os.path.join(base, "depth", "*.png")), key=key)
+        self.n_img = len(self.color_paths)
+        for p in sorted(glob.glob(os.path.join(base, "pose", "*.txt")),
+                        key=key):
+            self.poses.append(_flip_yz(np.loadtxt(p).reshape(4, 4)))
 
 
 class TUM_RGBD(BaseDataset):
@@ -507,7 +554,8 @@ class Synthetic(BaseDataset):
         return np.concatenate(verts_all), np.concatenate(faces_all)
 
 
-dataset_dict = {"tumrgbd": TUM_RGBD, "synthetic": Synthetic}
+dataset_dict = {"replica": Replica, "scannet": ScanNet, "tumrgbd": TUM_RGBD,
+                "synthetic": Synthetic}
 
 
 def get_dataset(cfg, input_folder: Optional[str] = None) -> BaseDataset:
@@ -515,8 +563,8 @@ def get_dataset(cfg, input_folder: Optional[str] = None) -> BaseDataset:
     if name not in dataset_dict:
         raise NotImplementedError(
             f"dataset {name!r} is not ported yet (ROADMAP.md Queue 1 item "
-            "11); the port runs 'tumrgbd' and the procedural 'synthetic' "
-            "scene")
+            "11b-iii); the port runs 'replica', 'scannet', 'tumrgbd' and "
+            "the procedural 'synthetic' scene")
     ds = dataset_dict[name](cfg, input_folder)
     if len(ds) == 0:
         raise FileNotFoundError(

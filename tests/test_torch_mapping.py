@@ -297,3 +297,20 @@ def test_mapping_chunk_matches(scene):
         assert diff.max() <= 2 * lr_sum + 1e-6
     moved = np.abs(np.asarray(jt["feat"]) - np.asarray(s.feat)).max()
     assert moved > 1e-3
+
+
+@pytest.mark.parametrize("n_geo,n_col,chunk", [
+    (401, 1099, 64), (121, 179, 64), (21, 39, 16), (64, 0, 64), (0, 10, 4),
+])
+def test_stage_chunks_split_the_stages(n_geo, n_col, chunk):
+    """Every iteration once, geometry before color, no chunk holding both
+    stages or more than `chunk` iterations, and the first chunk of each
+    stage marked."""
+    chunks = tmapper.stage_chunks(n_geo, n_col, chunk)
+    assert sum(g for g, _, _ in chunks) == n_geo
+    assert sum(c for _, c, _ in chunks) == n_col
+    n_geo_chunks = -(-n_geo // chunk)
+    for i, (g, c, first) in enumerate(chunks):
+        assert bool(g) != bool(c) and g + c <= chunk
+        assert bool(g) == (i < n_geo_chunks)
+        assert first == (i in (0, n_geo_chunks))

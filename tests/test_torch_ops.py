@@ -178,3 +178,40 @@ def test_adam_steps_with_zero_and_missing_grads(rng):
         for a, b in zip(tp, jp):
             close(a, b)
     assert tst.step == int(jst.step) == 4
+
+
+@pytest.mark.parametrize("late", [3, 40])
+def test_adam_restart_matches_torch_adam_for_late_leaves(rng, late):
+    """restart gives a leaf, or columns of one, what torch.optim.Adam gives
+    a parameter whose first gradient comes after `late` steps of the
+    others: the same parameters after six more steps, within 2e-6 (the
+    two divide by the bias corrections in another order, which moves the
+    last bits of each of up to 46 steps of 0.01)."""
+    a0 = rng.normal(size=(5, 3)).astype(np.float32)
+    b0 = rng.normal(size=(7,)).astype(np.float32)
+    c0 = rng.normal(size=(4, 6)).astype(np.float32)
+    # torch.optim.Adam: c's last three columns are a parameter of their own
+    ref = [torch.nn.Parameter(t(x.copy()))
+           for x in (a0, b0, c0[:, :3], c0[:, 3:])]
+    opt = torch.optim.Adam(ref, lr=0.01)
+    tp = [t(a0), t(b0), t(c0)]
+    st = tadam.init(tp)
+    for step in range(late + 6):
+        ga, gb, gc = (rng.normal(size=x.shape).astype(np.float32)
+                      for x in (a0, b0, c0))
+        on = step >= late  # b and c's last columns get gradients from here
+        ref[0].grad = t(ga)
+        ref[1].grad = t(gb) if on else None
+        ref[2].grad = t(gc[:, :3])
+        ref[3].grad = t(gc[:, 3:]) if on else None
+        opt.step()
+        if step == late:
+            st = tadam.restart(st, [False, True, torch.arange(6) >= 3])
+        tgc = t(gc) if on else t(np.concatenate(
+            [gc[:, :3], np.zeros((4, 3), np.float32)], 1))
+        tp, st = tadam.update(tp, [t(ga), t(gb) if on else None, tgc], st,
+                              0.01)
+    close(tp[0], ref[0].detach(), atol=2e-6)
+    close(tp[1], ref[1].detach(), atol=2e-6)
+    close(tp[2], torch.cat([ref[2].detach(), ref[3].detach()], 1),
+          atol=2e-6)

@@ -126,7 +126,7 @@ def _slice_cfg(**over):
 
 
 # ROADMAP.md Queue 1 items the port has: their settings pass check_slice
-PORTED_ITEMS = {10, 14, 15}
+PORTED_ITEMS = {10, 14, 15, 16}
 
 
 @pytest.mark.parametrize("over,item", [
@@ -147,7 +147,8 @@ def test_features_outside_the_slice_raise(over, item):
     """A feature of a ROADMAP item not yet ported raises, naming the item;
     the settings of ported items (submaps, loop closure and color
     refinement: item 10; the visualizer: item 14; the dynamic radius and
-    the color-gradient picks: item 15) pass."""
+    the color-gradient picks: item 15; exposure compensation: item 16)
+    pass."""
     cfg = _slice_cfg(use_dynamic_radius=False,
                      rendering={"sample_near_pcl": False})
     check_slice(cfg)  # the slice's own settings pass
@@ -167,3 +168,78 @@ def test_visualizer_that_never_fires_is_accepted():
                      rendering={"sample_near_pcl": False},
                      tracking={"vis_freq": 50}, mapping={"vis_freq": 50})
     check_slice(cfg)
+
+
+def test_color_stage_starts_its_leaves_afresh(tmp_path, monkeypatch,
+                                              torch_cpu):
+    """The session's mapping frames never mix the stages in one
+    optimize_map call, thread the Adam state within each stage, start each
+    frame's geometry stage with no state, and hand the color stage the
+    geometry stage's state with the color leaves (the color decoder, the
+    features' color half) started afresh and the geometry leaves going on
+    (mapper.start_color_stage)."""
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.mapping import mapper
+    from loopy_slam_torch.slam import LoopySLAM
+
+    calls = []
+    optimize_map = mapper.optimize_map
+
+    def spy(dec, feat, st, dec_mask, feat_mask, pos, grid, kc, kd, kp, draw,
+            g, c, *args, **kw):
+        names = [n for n, _ in dec.named_parameters()]
+        calls.append((g, c, st, names, feat.shape[1] // 2))
+        out = optimize_map(dec, feat, st, dec_mask, feat_mask, pos, grid,
+                           kc, kd, kp, draw, g, c, *args, **kw)
+        calls[-1] += (out[1],)
+        return out
+
+    monkeypatch.setattr(mapper, "optimize_map", spy)
+    cfg = load_config(ROOM)
+    update_recursive(cfg, {
+        "verbose": False,
+        "data": {"n_frames": 3},
+        "cam": {"H": 60, "W": 80, "fx": 60.0, "fy": 60.0, "cx": 39.5,
+                "cy": 29.5},
+        "tracking": {"pixels": 200, "iters": 4, "ignore_edge_W": 4,
+                     "ignore_edge_H": 4, "vis_freq": 0},
+        "mapping": {"every_frame": 2, "pixels": 400, "pixels_adding": 800,
+                    "iters": 30, "iters_first": 60, "geo_iter_first": 20,
+                    "mapping_window_size": 4, "keyframe_every": 2,
+                    "color_refine": False, "segment_strategy": "none",
+                    "vis_freq": 0, "device_chunk_iters": 16},
+        "pointcloud": {"capacity": 32768, "cell_table_size": 65536},
+    })
+    slam = LoopySLAM(cfg, output=str(tmp_path), device="cpu")
+    try:
+        slam.run()
+    finally:
+        slam.close()
+    # frame 0: 21 geometry iterations (16 + 5), 39 color (16 + 16 + 7)
+    assert [(g, c) for g, c, *_ in calls[:5]] == [
+        (16, 0), (5, 0), (0, 16), (0, 16), (0, 7)]
+    stages = ["geometry" if g else "color" for g, *_ in calls]
+    assert stages[5] == "geometry" and "color" in stages[5:]  # frame 2
+    for i, (g, c, st, names, half, st_out) in enumerate(calls):
+        assert bool(g) != bool(c) and g + c <= 16
+        if stages[i] == "geometry":
+            # a frame's first geometry chunk starts with no state
+            assert (st is None) == (i == 0 or stages[i - 1] == "color")
+            continue
+        assert st is not None
+        if stages[i - 1] == "color":  # threaded within the stage
+            assert st is calls[i - 1][5]
+            continue
+        prev = calls[i - 1][5]
+        assert st.step == prev.step
+        n = len(names)
+        for k, name in enumerate(names):
+            if name.startswith("col."):
+                assert st.start[k] == st.step
+                assert not st.m[k].any() and not st.v[k].any()
+            else:
+                assert st.start[k] == 0 and st.m[k] is prev.m[k]
+        cols = st.start[n]
+        assert (cols[half:] == st.step).all() and (cols[:half] == 0).all()
+        assert not st.m[n][:, half:].any()
+        assert st.m[n][:, :half].equal(prev.m[n][:, :half])

@@ -275,19 +275,32 @@ def test_fixture_writer_matches_jax_script(sequences):
 
 @pytest.mark.parametrize("case", ["jpeg", "exr", "crop_size", "size"])
 def test_loader_refuses_formats_not_ported(sequences, tmp_path, case):
+    """EXR depth and crop_size raise, naming their ROADMAP item. JPEG color
+    and color of another size than depth are ported: a JPEG the reader
+    does not support (progressive) raises with its name, and color of
+    another size is resized to depth's."""
     jdir, _, root = sequences
     cfg = _tum_cfg(tload, tupdate, jdir, root)
     ds = tget(cfg)
     if case == "jpeg":
-        ds.color_paths = [p[:-4] + ".jpg" for p in ds.color_paths]
-    elif case == "exr":
-        ds.depth_paths = [p[:-4] + ".exr" for p in ds.depth_paths]
-    elif case == "crop_size":
-        ds.crop_size = [100, 140]
-    else:  # color of another size than depth
+        path = str(tmp_path / "progressive.jpg")
+        cv2.imwrite(path, _image("rgb8", H=60, W=80),
+                    [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+        ds.color_paths = [path] * len(ds)
+        with pytest.raises(ValueError, match="progressive.jpg"):
+            ds[0]
+        return
+    if case == "size":  # color of another size than depth
         path = str(tmp_path / "small.png")
         imageio.write_png(path, _image("rgb8", H=60, W=80))
         ds.color_paths = [path] * len(ds)
+        _, color, depth, _ = ds[0]
+        assert color.shape[:2] == depth.shape
+        return
+    if case == "exr":
+        ds.depth_paths = [p[:-4] + ".exr" for p in ds.depth_paths]
+    else:
+        ds.crop_size = [100, 140]
     with pytest.raises(NotImplementedError, match="item 11"):
         ds[0]
 

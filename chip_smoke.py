@@ -2,6 +2,7 @@
 """Smoke test of loopy_slam_torch on one CUDA card.
 
     python3 chip_smoke.py [--frames N] [--profile] [--variants]
+                          [--dataset-runs N] [--base-runs N]
 
 Phases:
   1. the card's name and power limit, torch and CUDA versions;
@@ -101,11 +102,37 @@ Phases:
      holds the kernel against its plain version, with per-query radii,
      at ScanNet's tracking pool;
 
-Prints a JSON line of per-kernel numbers, then the card's name and power
-limit, then {"ok": true, "device": {...}} as the last line. Exits non-zero
-(and prints no result) without a CUDA device or if any phase fails.
-`--dataset-runs N` runs only phases 9 and 10, N times each with their
-gates, for their run-to-run spread (no kernels line, no result line).
+ 11. runs the base-config path: the CLI on an overlay of
+     configs/TUM_RGBD/freiburg1_desk.yaml over phase 8's sequence with the
+     options the reference's base config has and no shipped dataset YAML
+     turns on: rendering.sample_near_pcl (zero-depth rays sample between
+     the first two of 25 probe depths where the map lies; no k-NN cache
+     or ray pool, so every iteration runs its own k-NN and its probe),
+     mapping.BA (the window's poses trained once it holds more than 4
+     keyframes) and tracking.visual_odometer (RGB-D odometry from the
+     previous frame as the motion model, const_speed_assumption off);
+     widths as shipped, depth cut (BASE_OVERRIDES: keyframe_every 2,
+     submaps, color refinement, evaluation and visualizer off, 100 tracking
+     and 500 / 100 mapping iterations); then renders the last frame through
+     the restored map; prints a `base:` line (ATE, rejects, launches, BA's
+     mapped frames and the keyframe poses it moved, odometer calls and ms
+     a call, the zero-depth share, the rendered frame's hole pixels and
+     those with a probe depth, the phase times, peak memory) and gates on
+     ATE < 2 cm, no rejects, launches > 0, BA on >= 2 mapped frames with
+     a keyframe moved > 1e-7 m, an odometer pose on every tracked frame
+     from frame 2 with every pose finite, >= 0.5 % zero-depth pixels and a
+     rendered hole pixel with a finite depth > 0; then (11b) holds the
+     kernel against its plain version at the probe's two shapes (the
+     tracking probes, pixels x 25, and a render chunk's, 4096 x 25) at the
+     scalar radius_query.
+
+Prints a JSON line of per-kernel numbers, the script's seconds, then the
+card's name and power limit, then {"ok": true, "device": {...}} as the
+last line. Exits non-zero (and prints no result) without a CUDA device or
+if any phase fails. `--dataset-runs N` runs only phases 9 and 10, N times
+each with their gates, for their run-to-run spread (no kernels line, no
+result line); `--base-runs N` runs only phases 11 and 11b (writing phase
+8's sequence first), N times.
 Imports nothing of JAX; needs no PyYAML, cv2 or PIL (phases 3-5 build
 their config from DEFAULTS, phases 6 and 8-10 read YAML with the port's
 own reader, and phases 8-10 write and read their PNGs and JPEGs with the
@@ -1489,6 +1516,216 @@ def scannet_kernel_check(overlay, device):
                        grid, q, cfg["pointcloud"]["nn_num"], r)
 
 
+# the base-config path: freiburg1_desk.yaml on phase 8's sequence with the
+# three tracking and mapping options of configs/point_slam.yaml's reference
+# that no shipped dataset YAML turns on: sample_near_pcl (the base YAML's
+# default), bundle adjustment and the visual odometer (the motion model
+# only without const_speed_assumption). Widths as shipped (5000 tracking
+# pixels, 10000 mapping pixels over a window of 10, 480x640, nn_num 8).
+# Depth cuts, for a phase of ~90 s: keyframe_every 2 (5), so that BA
+# (more than 4 keyframes) turns on within the sequence, as the JAX
+# package's own BA test sets it; submaps off (a segment restarts the local
+# keyframe list, which BA counts; phases 5, 6 and 8-10 hold submaps);
+# color refinement, the final evaluation and the visualizer off (five
+# earlier paths hold them); 100 tracking iterations (200) and 500 first /
+# 100 mapping iterations (1500 / 300): without the k-NN cache and the ray
+# pool every iteration runs its own k-NN and its probe, and the odometer
+# takes ~2 s a frame (on an NVIDIA H100 80GB HBM3 at 700 W these made a
+# 63-67 s phase ending 6 mm off; 300 / 60 mapping iterations ended 10-13
+# mm off, near the 2 cm gate)
+BASE_OVERRIDES = {
+    "rendering": {"sample_near_pcl": True, "eval_img": False},
+    "tracking": {"visual_odometer": True, "const_speed_assumption": False,
+                 "iters": 100, "vis_freq": 0},
+    "mapping": {"BA": True, "keyframe_every": 2, "every_frame": 2,
+                "segment_strategy": "none", "color_refine": False,
+                "iters_first": 500, "iters": 100, "vis_freq": 0},
+    "meshing": {"eval_rec": False},
+}
+BASE_MIN_BA_FRAMES = 2
+# the JAX package's own floor for its fixture's holes
+# (tests/test_sensor_fixtures.py)
+BASE_MIN_ZERO_DEPTH = 0.005
+
+
+def base_phase(device):
+    """The base-config path: `python -m loopy_slam_torch.run` (its main)
+    on an overlay of freiburg1_desk.yaml (BASE_OVERRIDES) over phase 8's
+    TUM-format sequence, with the kernel's launch count reset just before
+    and read just after; then the last frame rendered at its estimate
+    through the restored map, its zero-depth pixels by the probe. Returns
+    (summary, overlay path)."""
+    import shutil
+
+    import numpy as np
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.slam import LoopySLAM
+    from loopy_slam_torch.utils.datasets import get_dataset
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    fixture = os.path.join(HERE, "output", "chip_smoke_tum", "sequence")
+    if not os.path.isdir(fixture):  # --base-runs: phase 8 did not run
+        from loopy_slam_torch.tools.make_sensor_fixtures import write_tum
+
+        write_tum(fixture, TUM_FRAMES, 1.0 / 200.0)
+    print("== phase 11: the base-config path, freiburg1_desk.yaml with "
+          "sample_near_pcl, BA and the visual odometer on phase 8's "
+          "sequence", flush=True)
+    out = os.path.join(HERE, "output", "chip_smoke_base")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    overlay = os.path.join(out, "base.yaml")
+    with open(overlay, "w") as f:
+        f.write("inherit_from: " + json.dumps(os.path.join(
+            HERE, "configs", "TUM_RGBD", "freiburg1_desk.yaml")) + "\n")
+        f.write("data: " + json.dumps({"input_folder": fixture,
+                                        "output": out}) + "\n")
+        for k, v in BASE_OVERRIDES.items():
+            f.write(f"{k}: {json.dumps(v)}\n")
+    t_phase = time.perf_counter()
+    stats, extra = run_dataset_path(overlay, out)
+
+    cfg = load_config(overlay)
+    ds = get_dataset(cfg)
+    zero_share = float(np.mean([np.mean(ds[i][2] == 0)
+                                for i in range(len(ds))]))
+    ckpt = cli.latest_checkpoint(out)
+    ck = load_checkpoint(ckpt)
+    est = np.asarray(ck["estimate_c2w_list"])
+    kf_moved = sorted(int(i) for i, p in ck["keyframe_est_c2w"].items()
+                      if np.linalg.norm(p[:3, 3] - est[i][:3, 3]) > 1e-7)
+    odo = stats["timings_s"].get("odometry", [])
+    n = stats["n"]
+    # the last frame rendered through the restored map: its zero-depth
+    # pixels sample where the probe finds the cloud
+    slam = LoopySLAM(cfg, output=os.path.join(out, "render"), device=device)
+    try:
+        slam.restore(ckpt)
+        last = len(ds) - 1
+        _, _, depth_np, _ = ds[last]
+        t0 = time.perf_counter()
+        depth, _ = slam.render_img(slam.estimate_c2w[last], depth_np)
+        render_s = time.perf_counter() - t0
+    finally:
+        slam.close()
+    holes = depth_np == 0
+    filled = holes & np.isfinite(depth) & (depth > 0)
+    summary = session_summary(stats, {
+        **extra, "frames_associated": len(ds),
+        "ba_frames": stats["ba_frames"], "kf_moved_by_ba": kf_moved,
+        "odometer_calls": len(odo),
+        "odometer_ms_per_call": (float(np.median(odo)) * 1e3
+                                 if odo else None),
+        "odometer_total_s": float(np.sum(odo)),
+        "poses_finite": bool(np.isfinite(est[:n]).all()),
+        "zero_depth_share": zero_share,
+        "render_hole_pixels": int(holes.sum()),
+        "render_hole_pixels_with_depth": int(filled.sum()),
+        "render_s": render_s,
+        "phase_s": time.perf_counter() - t_phase})
+    print("base:", json.dumps(summary), flush=True)
+    failures = []
+    if not summary["ate_rmse_m"] < TUM_ATE_GATE_M:
+        failures.append(f"ATE {summary['ate_rmse_m']} m not < "
+                        f"{TUM_ATE_GATE_M} m")
+    if summary["health_rejects"]:
+        failures.append(f"{summary['health_rejects']} health-gate rejects")
+    if summary["knn_select_launches"] <= 0:
+        failures.append("the base path never launched the knn_select "
+                        "kernel")
+    if len(summary["ba_frames"]) < BASE_MIN_BA_FRAMES:
+        failures.append(f"BA ran on {len(summary['ba_frames'])} mapped "
+                        f"frames < {BASE_MIN_BA_FRAMES}")
+    if not kf_moved:
+        failures.append("BA moved no keyframe pose by more than 1e-7 m")
+    if summary["odometer_calls"] != n - 2 or not summary["poses_finite"]:
+        failures.append(f"{summary['odometer_calls']} odometer poses for "
+                        f"{n - 2} tracked frames from frame 2, finite "
+                        f"{summary['poses_finite']}")
+    if zero_share < BASE_MIN_ZERO_DEPTH:
+        failures.append(f"zero-depth share {zero_share} < "
+                        f"{BASE_MIN_ZERO_DEPTH}")
+    if not filled.any():
+        failures.append("no zero-depth pixel of the rendered frame got a "
+                        "finite depth > 0")
+    if failures:
+        raise AssertionError("the base-config path: " + "; ".join(failures))
+    return summary, overlay
+
+
+def probe_queries(ro, rd, depth, rcfg):
+    """The probe points sample_near_pcl_z_vals_raw queries for these rays
+    (25 a ray between near_end and far), far as render_batch_ray sets it
+    from the rays' depth-guided samples."""
+    import torch
+
+    from loopy_slam_torch.mapping.point_cloud import probe_points
+    from loopy_slam_torch.ops.masked import masked_max
+    from loopy_slam_torch.ops.sampling import surface_z_vals
+
+    z = surface_z_vals(depth, depth > 0, rcfg["N_surface"],
+                       rcfg["near_end_surface"], rcfg["far_end_surface"],
+                       rcfg["near_end"])
+    far = torch.clamp(masked_max(z[:, -1], depth > 0, fill=0.0), min=1.0)
+    return probe_points(ro, rd, rcfg["near_end"], far)[0].contiguous()
+
+
+def base_kernel_check(overlay, device):
+    """The kernel against its plain version at the probe's two shapes over
+    the base path's final map, at the scalar radius_query: the tracking
+    probes (pixels rays of the last frame's color-gradient pool at its
+    estimate, 25 probes each) and a render chunk's probes (4096 rays of
+    the last frame's middle, 25 each)."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.ops.camera import get_rays, rays_from_uv
+    from loopy_slam_torch.ops.image import select_pixels_by_grad
+    from loopy_slam_torch.slam import update_cam
+    from loopy_slam_torch.utils.datasets import get_dataset
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    print("== phase 11b: knn_select at the sample_near_pcl probes",
+          flush=True)
+    cfg = load_config(overlay)
+    ck = load_checkpoint(cli.latest_checkpoint(cfg["data"]["output"]))
+    grid = checkpoint_grid(cfg, ck, device)
+    ds = get_dataset(cfg)
+    last = len(ds) - 1
+    color, depth, c2w, _ = frame_view(cfg, ck, ds, device, last)
+    cam = update_cam(cfg)
+    t = cfg["tracking"]
+    rcfg = cfg["rendering"]
+    k, r = cfg["pointcloud"]["nn_num"], cfg["pointcloud"]["radius_query"]
+    M, T = grid.cell_data.shape[1], grid.cell_data.shape[0] - 1
+    flat, _ = select_pixels_by_grad(
+        t["ignore_edge_H"], cam["H"] - t["ignore_edge_H"],
+        t["ignore_edge_W"], cam["W"] - t["ignore_edge_W"], t["pixels"],
+        color, gt_depth=depth.cpu().numpy(), depth_limit=t["depth_limit"])
+    gen = np.random.default_rng(11)
+    pick = torch.as_tensor(gen.choice(flat, t["pixels"]), device=device)
+    j, i = pick // cam["W"], pick % cam["W"]
+    ro, rd = rays_from_uv(i.float(), j.float(), c2w, cam["fx"], cam["fy"],
+                          cam["cx"], cam["cy"])
+    q = probe_queries(ro, rd, depth[j, i], rcfg)
+    results = [check_shape(f"track_probes Q={q.shape[0]} M={M} T={T}",
+                           grid, q, k, r)]
+    ro, rd = get_rays(cam["H"], cam["W"], cam["fx"], cam["fy"], cam["cx"],
+                      cam["cy"], c2w)
+    chunk = 4096
+    i0 = (cam["H"] * cam["W"] // 2) // chunk * chunk  # the middle chunk
+    q = probe_queries(ro.reshape(-1, 3)[i0:i0 + chunk],
+                      rd.reshape(-1, 3)[i0:i0 + chunk],
+                      depth.reshape(-1)[i0:i0 + chunk], rcfg)
+    results.append(check_shape(f"render_probes Q={q.shape[0]} M={M} T={T}",
+                               grid, q, k, r))
+    return results
+
+
 def profile_phase(device, n_frames=6, top=15):
     """Device time by kernel over a short session, and the busy share."""
     import torch
@@ -1542,6 +1779,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dataset-runs", type=int, default=0,
                     help="run only the Replica and ScanNet paths, this many "
                          "times each (their spread; prints no result)")
+    ap.add_argument("--base-runs", type=int, default=0,
+                    help="run only the base-config path and its kernel "
+                         "check, this many times (prints no result)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1555,6 +1795,7 @@ def main(argv=None) -> int:
     from loopy_slam_torch.csrc import build
 
     device = resolve_device()
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     print("== phase 1:", smi, "| torch", torch.__version__, "| cuda",
           torch.version.cuda, "|", sys.version.split()[0], flush=True)
@@ -1573,6 +1814,12 @@ def main(argv=None) -> int:
         for _ in range(args.dataset_runs):
             replica_phase()
             scannet_phase()
+        return 0
+    if args.base_runs:
+        for _ in range(args.base_runs):
+            _, base_cfg = base_phase(device)
+            base_kernel_check(base_cfg, device)
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         return 0
 
     # the kernel check's map spans frames 0..30 whatever the slice's length
@@ -1594,6 +1841,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     scannet_summary, scannet_cfg = scannet_phase()
     shape_results.append(scannet_kernel_check(scannet_cfg, device))
+    torch.cuda.empty_cache()
+    base_summary, base_cfg = base_phase(device)
+    shape_results += base_kernel_check(base_cfg, device)
     if args.profile:
         profile_phase(device)
 
@@ -1603,7 +1853,8 @@ def main(argv=None) -> int:
     by_path = {name: res["knn_select_launches"] for name, res in (
         ("slice1", summary), ("segmented", seg_summary),
         ("cli", cli_summary), ("tum", tum_summary),
-        ("replica", replica_summary), ("scannet", scannet_summary))}
+        ("replica", replica_summary), ("scannet", scannet_summary),
+        ("base", base_summary))}
     entry = {
         "name": "knn_select", "route": "cuda",
         "source": "loopy_slam_torch/csrc/knn_select.cu",
@@ -1620,6 +1871,7 @@ def main(argv=None) -> int:
         "shapes": shape_results,
     }
     print(json.dumps({"kernels": [entry]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,10 @@ state threads across chunks; the session starts the color leaves afresh
 at the color stage (stage_chunks, start_color_stage: unlike the JAX
 package, which threads one step count through both stages). With
 pixel_pool_factor > 0 each chunk samples a pool of rays once, runs the
-k-NN once over it, and every iteration draws its rays from the pool.
+k-NN once over it, and every iteration draws its rays from the pool;
+with rendering.sample_near_pcl or bundle adjustment (the window's poses
+trained beside the map, `cams`) every iteration samples and queries
+afresh.
 
 Loss: depth L1 over (gt>0 & valid_ray & finite & inside) rays; the color
 stage adds w_color_loss * color L1 against targets clipped to
@@ -37,7 +40,8 @@ from ..models.renderer import (RenderOptions, decode_neighbors,
                                gather_featpos, render_batch_ray,
                                soft_clamp_logits)
 from ..ops import adam, knn
-from ..ops.camera import invert_c2w, project_points, rays_from_uv
+from ..ops.camera import (c2w_from_tensor, invert_c2w, project_points,
+                          rays_from_uv)
 from ..ops.compositing import composite
 from ..ops.image import bilinear_sample
 from ..ops.masked import masked_max, masked_median
@@ -328,7 +332,9 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
                        draw, n_geo_iters: int, n_col_iters: int,
                        lrs_geo, lrs_col, opts: MapperOptions,
                        ropts: RenderOptions, pix_per_frame: int,
-                       kf_rq=None, kf_exposure=None, exp=None):
+                       kf_rq=None, kf_exposure=None, exp=None, cams=None,
+                       ba_row_mask=None, ba_lr: float = 0.0,
+                       ba_window=None, iter_offset: int = 0):
     """Run a chunk of the geometry -> color mapping optimization.
 
     dec: Decoders (updated in place); feat: (cap, 2c) packed features;
@@ -340,8 +346,19 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
     None for ropts.radius_query. With opts.encode_exposure: kf_exposure
     (F, 8) the window frames' exposure latents (the last row stands for
     the current frame) and exp (8,) the current frame's latent, trained at
-    lr 0.001. Returns (feat, adam_state, (geo_loss, col_loss, n_rays)),
-    and exp' after them with exposure.
+    lr 0.001.
+
+    Bundle adjustment: cams (F, 7), the window's poses as trainable
+    7-vectors, replace kf_c2w (rays are built from them, so pose
+    gradients flow) and take the Adam state's last leaf, after the
+    features and exp. A row trains at ba_lr * ba_row_mask[row] while the
+    session's iteration count, iter_offset + this call's iterations, lies
+    in [ba_window[0], ba_window[1]) (float32 bounds, as the JAX package
+    compares them); outside it the row's lr is 0 and its moments still
+    move. With cams no ray pool is built: the poses move.
+
+    Returns (feat, adam_state, (geo_loss, col_loss, n_rays)), then exp'
+    with exposure, then cams' with cams.
     """
     names = [n for n, _ in dec.named_parameters()]
     params = [p for _, p in dec.named_parameters()]
@@ -352,15 +369,22 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
     if with_exp and (kf_exposure is None or exp is None):
         raise ValueError("model.encode_exposure needs kf_exposure and exp")
     extra = [exp.detach()] if with_exp else []
+    if cams is not None:
+        extra.append(cams.detach())
+        ba_rows = torch.as_tensor(ba_row_mask, dtype=torch.float32,
+                                  device=feat.device).reshape(-1, 1)
+        win = [float(np.float32(w)) for w in ba_window]
     if adam_state is None:
         adam_state = adam.init(params + [feat] + extra)
-    use_pool = opts.pixel_pool_factor > 0 and not ropts.sample_near_pcl
+    use_pool = (opts.pixel_pool_factor > 0 and not ropts.sample_near_pcl
+                and cams is None)
     pool = None
     if use_pool:
         pool = _build_pool(map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq,
                            draw, opts, ropts,
                            opts.pixel_pool_factor * pix_per_frame)
     aux = (torch.zeros((), device=feat.device),) * 3
+    it = iter_offset
     for stage, n_iters, lrs in (("geometry", n_geo_iters, lrs_geo),
                                 ("color", n_col_iters, lrs_col)):
         pool_this_stage = use_pool and (stage != "color"
@@ -368,7 +392,7 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
         lr_feat = torch.cat([torch.full((c,), float(lrs[1])),
                              torch.full((c,), float(lrs[2]))]).to(feat.device)
         lr_list = [float(lrs[0])] * len(params) + [lr_feat] \
-            + [0.001] * len(extra)
+            + ([0.001] if with_exp else [])
         for _ in range(n_iters):
             feat_v = feat.detach().requires_grad_(True)
             exp_v = [e.detach().requires_grad_(True) for e in extra]
@@ -378,8 +402,9 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
                                            stage, opts, ropts, pix_per_frame,
                                            exposure)
             else:
+                c2w = kf_c2w if cams is None else c2w_from_tensor(exp_v[-1])
                 loss, aux = _map_loss(dec, feat_v, map_pos, grid, kf_color,
-                                      kf_depth, kf_c2w, kf_rq, draw, stage,
+                                      kf_depth, c2w, kf_rq, draw, stage,
                                       opts, ropts, pix_per_frame, exposure)
             grads = torch.autograd.grad(loss, params + [feat_v] + exp_v,
                                         allow_unused=True)
@@ -388,18 +413,21 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
                      for g, on in zip(grads[:n], dec_on)] \
                 + [grads[n] * fm if grads[n] is not None else None] \
                 + list(grads[n + 1:])
+            lrs_it = lr_list
+            if cams is not None:
+                in_win = float(win[0] <= it < win[1])
+                lrs_it = lr_list + [ba_lr * in_win * ba_rows]
             with torch.no_grad():
                 new, adam_state = adam.update(
                     [p.detach() for p in params] + [feat_v.detach()]
                     + [e.detach() for e in exp_v], grads, adam_state,
-                    lr_list)
+                    lrs_it)
                 for p, q in zip(params, new[:n]):
                     p.copy_(q)
                 feat = new[n]
                 extra = new[n + 1:]
-    if with_exp:
-        return feat, adam_state, aux, extra[0]
-    return feat, adam_state, aux
+            it += 1
+    return (feat, adam_state, aux, *extra)
 
 
 optimize_map = _optimize_map_impl
@@ -416,11 +444,13 @@ def stage_chunks(n_geo: int, n_col: int, chunk: int):
     return out
 
 
-def start_color_stage(adam_state, dec, c: int):
+def start_color_stage(adam_state, dec, c: int, with_cams: bool = False):
     """The geometry stage's Adam state with the color leaves started afresh:
     the color decoder, the color half of the (cap, 2c) features and the
-    exposure latent (the leaves after the features). They had no gradient
-    in the geometry stage.
+    exposure latent (the leaf after the features, with exposure). They had
+    no gradient in the geometry stage. With bundle adjustment the last
+    leaf is the window's poses (cams): it goes on, moments and step count,
+    as the JAX package threads it.
 
     The JAX package threads one state, with one step count, from the
     geometry stage into the color stage. The color leaves' moments are
@@ -431,10 +461,11 @@ def start_color_stage(adam_state, dec, c: int):
     torch.optim.Adam counts a parameter's steps from its first gradient,
     as this does; the geometry leaves go on."""
     names = [n for n, _ in dec.named_parameters()]
-    n_extra = len(adam_state.m) - len(names) - 1
+    n_extra = len(adam_state.m) - len(names) - 1 - int(with_cams)
     feat_cols = torch.arange(2 * c, device=adam_state.m[len(names)].device)
     return adam.restart(adam_state, [n.startswith("col.") for n in names]
-                        + [feat_cols >= c] + [True] * n_extra)
+                        + [feat_cols >= c] + [True] * n_extra
+                        + [False] * int(with_cams))
 
 
 # ---------------------------------------------------------------------------

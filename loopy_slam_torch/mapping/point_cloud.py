@@ -9,6 +9,10 @@ free slot; each surviving location spawns N_add points stratified along
 its ray with N(0, 0.1) features. The sensor-space input cloud (final PLY export) is
 accumulated in a parallel buffer. Counts stay on the device, so an
 insertion never waits for the host.
+
+sample_near_pcl_z_vals(_raw) place a zero-depth ray's samples where the
+cloud lies (rendering.sample_near_pcl): one k-NN over 25 probe depths a
+ray, of which only the in-radius counts are read.
 """
 
 from __future__ import annotations
@@ -203,3 +207,69 @@ def add_points(state: MapState, opts: MapOptions, draw,
                       torch.repeat_interleave(gate, N))
     return MapState(pos=pos, feat=feat, count=count, grid=grid,
                     in_pos=in_pos, in_rgb=in_rgb, in_count=in_count), n_loc
+
+
+PROBE_INTERVALS = 25
+
+
+def linspace01(n: int, device) -> torch.Tensor:
+    """n float32 steps from 0 to 1 as XLA computes jnp.linspace(0, 1, n):
+    i * float32(1 / (n - 1)), the last exactly 1 (torch.linspace rounds
+    differently at n = 25)."""
+    if n == 1:
+        return torch.zeros(1, device=device)
+    t = torch.arange(n, dtype=torch.float32, device=device) \
+        * torch.tensor(1.0 / (n - 1), dtype=torch.float32, device=device)
+    t[-1] = 1.0
+    return t
+
+
+def sample_near_pcl_z_vals(state: MapState, opts: MapOptions, rays_o,
+                           rays_d, near, far, num: int):
+    """sample_near_pcl_z_vals_raw over a map state, at its options'
+    radius_query and nn_num."""
+    return sample_near_pcl_z_vals_raw(state.pos, state.grid, rays_o, rays_d,
+                                      near, far, num, opts.radius_query,
+                                      opts.nn_num)
+
+
+def probe_points(rays_o, rays_d, near, far):
+    """The (R * 25, 3) probe points of sample_near_pcl_z_vals_raw, ray by
+    ray, and their 25 depths."""
+    t = linspace01(PROBE_INTERVALS, rays_o.device)
+    z_probe = near * (1.0 - t) + far * t
+    pts = (rays_o[:, None, :] + rays_d[:, None, :] * z_probe[None, :, None]
+           ).reshape(-1, 3)
+    return pts, z_probe
+
+
+@torch.no_grad()
+def sample_near_pcl_z_vals_raw(pos, grid, rays_o, rays_d, near, far,
+                               num: int, radius_query, nn_num: int):
+    """z-vals for zero-depth rays, where the point cloud lies: probe 25
+    depths in [near, far] on each ray, call a probe occupied when the
+    k-NN finds a neighbour within the scalar radius_query, and place
+    `num` samples between the first two occupied probes. A ray with fewer
+    than two occupied probes falls back to [near, far] and is flagged
+    invalid. far may be a device scalar. Returns (z_vals (R, num),
+    invalid (R,)). One k-NN over R * 25 probe points (one kernel launch
+    on the card); only its in-radius counts are read."""
+    R = rays_o.shape[0]
+    dev = rays_o.device
+    pts, z_probe = probe_points(rays_o, rays_d, near, far)
+    _, _, nn_count = knn.query_chunked(grid, pos, pts, nn_num, radius_query)
+    occupied = (nn_count > 0).reshape(R, PROBE_INTERVALS)
+    invalid = torch.sum(occupied, dim=-1) < 2
+    # argmax of an integer row returns the first maximum, as jnp.argmax
+    first = torch.argmax(occupied.to(torch.int32), dim=-1)
+    rows = torch.arange(R, device=dev)
+    occupied2 = occupied.clone()
+    occupied2[rows, first] = False
+    second = torch.argmax(occupied2.to(torch.int32), dim=-1)
+    near_t = torch.as_tensor(near, dtype=torch.float32, device=dev)
+    far_t = torch.as_tensor(far, dtype=torch.float32, device=dev)
+    z0 = torch.where(invalid, near_t, z_probe[first])
+    z1 = torch.where(invalid, far_t, z_probe[second])
+    t = linspace01(num, dev)
+    z_vals = z0[:, None] * (1.0 - t) + z1[:, None] * t
+    return z_vals, invalid

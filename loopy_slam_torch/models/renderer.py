@@ -22,8 +22,10 @@ from typing import NamedTuple
 
 import torch
 
+from ..mapping.point_cloud import sample_near_pcl_z_vals_raw
 from ..ops import knn
 from ..ops.compositing import composite
+from ..ops.masked import masked_max
 from ..ops.sampling import pixels_to_points, surface_z_vals
 from .decoder import (col_forward, exposure_affine, geo_forward,
                       interp_weights, interpolate_features,
@@ -198,17 +200,30 @@ def render_batch_ray(dec, map_pos, grid, feats, rays_o, rays_d, gt_depth,
     """Render a fixed-size batch of rays. `r_query` is a per-ray (R,)
     query radius (the dynamic radius), repeated once per sample, or None
     for opts.radius_query; exposure_feat/exposure_mlp: the exposure
-    latent and MLP (see decode_neighbors). Returns (depth, depth_var,
-    color, valid_ray_mask), each (R, ...). The sample-near-pcl z-vals of
-    the reference are not ported (see LoopySLAM's config check)."""
-    if opts.sample_near_pcl:
-        raise NotImplementedError(
-            "rendering.sample_near_pcl is not ported yet (ROADMAP.md "
-            "Queue 1 item 18)")
+    latent and MLP (see decode_neighbors). With opts.sample_near_pcl,
+    zero-depth rays sample between the first two probe depths where the
+    point cloud lies (mapping/point_cloud.sample_near_pcl_z_vals_raw, at
+    the scalar radius_query, on detached rays) and a ray whose probe found
+    fewer than two is invalid; their depths are kept. Without it,
+    zero-depth rays render depth 0. Returns (depth, depth_var, color,
+    valid_ray_mask), each (R, ...)."""
     R = rays_o.shape[0]
     S = opts.n_surface
     z_vals = surface_z_vals(gt_depth, ray_valid, S, opts.near_end_surface,
                             opts.far_end_surface, opts.near_end)
+    mask_rays_near_pcl = None
+    if opts.sample_near_pcl:
+        # far: the deepest surface sample of a valid ray with depth, at
+        # least 1 m (padded rays of a render chunk carry depth 0)
+        far = torch.clamp(masked_max(z_vals[:, -1].detach(),
+                                     ray_valid & (gt_depth > 0), fill=0.0),
+                          min=1.0)
+        z_near, invalid = sample_near_pcl_z_vals_raw(
+            map_pos, grid, rays_o.detach(), rays_d.detach(), opts.near_end,
+            far, S, opts.radius_query, opts.nn_num)
+        has_depth = gt_depth > 0
+        z_vals = torch.where(has_depth[:, None], z_vals, z_near)
+        mask_rays_near_pcl = has_depth | ~invalid
     pts = pixels_to_points(rays_o, rays_d, z_vals).reshape(-1, 3)
     views_d = None
     if opts.use_view_direction:
@@ -220,7 +235,11 @@ def render_batch_ray(dec, map_pos, grid, feats, rays_o, rays_d, gt_depth,
         dec, map_pos, grid, feats, pts, draw, opts, stage, views_d=views_d,
         r_query=rq, exposure_feat=exposure_feat, exposure_mlp=exposure_mlp)
     valid_ray = torch.sum(has_neighbors.reshape(R, S), dim=-1) >= (S // 2 + 1)
+    if mask_rays_near_pcl is not None:
+        valid_ray = valid_ray & mask_rays_near_pcl
     depth, depth_var, color, _ = composite(
         rgb.reshape(R, S, 3), occ.reshape(R, S), z_vals, opts.sigmoid_coef)
-    depth = torch.where(gt_depth > 0, depth, torch.zeros((), device=depth.device))
+    if not opts.sample_near_pcl:
+        depth = torch.where(gt_depth > 0, depth,
+                            torch.zeros((), device=depth.device))
     return depth, depth_var, color, valid_ray

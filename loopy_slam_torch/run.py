@@ -34,7 +34,8 @@ def main(argv=None):
     "eval_error"), so callers can gate on them; besides, the session's
     points, health-gate rejects, segments, correction rounds, its phase
     times (`timings_s`, `eval_timings_s`), the color-gradient picks'
-    counts (`grad_stats`) and, on a resumed run, `resume`
+    counts (`grad_stats`), the mapped frames that ran bundle adjustment
+    (`ba_frames`) and, on a resumed run, `resume`
     (the checkpoint, the first frame run and the restored map's points)."""
     import numpy as np
     import torch
@@ -93,7 +94,8 @@ def main(argv=None):
                      segments=len(slam.fm.fragments),
                      correction_rounds=len(slam.lc.rounds),
                      timings_s=dict(slam.timings),
-                     grad_stats=dict(slam.grad_stats))
+                     grad_stats=dict(slam.grad_stats),
+                     ba_frames=list(slam.ba_frames))
         if resumed is not None:
             stats["resume"] = resumed
         if not cfg.get("stop") and (cfg["rendering"]["eval_img"]

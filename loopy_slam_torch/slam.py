@@ -6,8 +6,12 @@ Port of loopy_slam_tpu/slam.py's host loop, with the same schedule:
     map(0); track(1) .. track(k*E); map(k*E); track(k*E+1) ...
 
 Frame 0 and 1 take the ground-truth pose; every later frame is tracked from
-the constant-speed motion model; every `mapping.every_frame` frames (and the
-last) inserts points and optimizes the map over a keyframe window.
+the constant-speed motion model (or, with tracking.visual_odometer and
+without const_speed_assumption, from direct RGB-D odometry against the
+previous frame); every `mapping.every_frame` frames (and the last) inserts
+points and optimizes the map over a keyframe window, with mapping.BA also
+the window's poses once it holds more than 4 keyframes (the trained poses
+go back into the keyframes' and the current frame's estimates).
 
 Submaps: with mapping.segment_strategy 'rot_trans' (the camera left its
 segment anchor) or 'fixed', a mapped frame opens a new segment: the active
@@ -41,6 +45,9 @@ run from a checkpoint written by `finalize` (by either package). With
 tracking.vis_freq / mapping.vis_freq, residual panels are written during
 the run (utils/visualizer.py).
 
+With wandb set, the tracking and mapping losses go to wandb when it is
+installed (utils/telemetry.py; a no-op otherwise).
+
 A config that asks for a feature outside the port raises
 NotImplementedError naming its ROADMAP.md item instead of silently running
 something else.
@@ -67,9 +74,10 @@ from .models.decoder import init_decoders, trainable_mask
 from .models.renderer import RenderOptions, render_batch_ray
 from .ops import knn, tsdf
 from .ops.orb import extract_orb
-from .ops.camera import get_rays, tensor_from_c2w
+from .ops.camera import get_rays, np_c2w_from_tensor, tensor_from_c2w
 from .ops.image import dynamic_radius_maps, select_pixels_by_grad
 from .ops.draws import TorchDraws
+from .ops.odometry import rgbd_odometry
 from .tools.cull_mesh import cull_mesh
 from .tools.eval_images import evaluate_renders
 from .tools.eval_recon import calc_2d_metric, calc_3d_metric
@@ -77,6 +85,7 @@ from .tools.get_mesh_tsdf_fusion import mesh_from_renders
 from .utils.datasets import get_dataset
 from .utils.io import (load_checkpoint, save_checkpoint, write_ply_mesh,
                        write_ply_points)
+from .utils.telemetry import WandbLogger
 from .utils.visualizer import Visualizer
 
 
@@ -103,29 +112,19 @@ def update_cam(cfg) -> Dict[str, float]:
 
 def check_slice(cfg) -> None:
     """Raise NotImplementedError for any configured feature the port does
-    not have yet, naming its ROADMAP.md item. Submaps, loop closure and
-    color refinement (item 10), the visualizer (item 14), the dynamic
-    radius with the color-gradient picks (item 15) and exposure
-    compensation (item 16) are in."""
-    m, t = cfg["mapping"], cfg["tracking"]
-    seg = m["segment_strategy"]
+    not have yet, naming its ROADMAP.md item: multi-device (item 13).
+    Every tracking, mapping and rendering option of the JAX package is in,
+    the visual odometer, bundle adjustment, sample_near_pcl and the wandb
+    shim among them."""
+    seg = cfg["mapping"]["segment_strategy"]
     if seg not in ("rot_trans", "fixed", "none"):
         raise ValueError(f"mapping.segment_strategy={seg!r} is not one of "
                          "'rot_trans', 'fixed' or 'none'")
     par = cfg.get("parallel", {})
-    missing = [
-        (t["visual_odometer"], "tracking.visual_odometer", 11),
-        (int(par.get("n_devices", 0)) > 1 or par.get("map_shard", False),
-         "parallel.* (multi-device)", 13),
-        (m["BA"], "mapping.BA", 17),
-        (cfg["rendering"]["sample_near_pcl"], "rendering.sample_near_pcl", 18),
-        (cfg["wandb"], "wandb", 19),
-    ]
-    for on, what, item in missing:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to loopy_slam_torch yet "
-                f"(ROADMAP.md Queue 1 item {item})")
+    if int(par.get("n_devices", 0)) > 1 or par.get("map_shard", False):
+        raise NotImplementedError(
+            "parallel.* (multi-device) is not ported to loopy_slam_torch "
+            "yet (ROADMAP.md Queue 1 item 13)")
 
 
 def _upload_frame(color_np, depth_np, device):
@@ -245,6 +244,11 @@ class LoopySLAM:
         # resample; per mapped frame, the locations the gradient picks added
         self.grad_stats: Dict[str, List[int]] = {"track_pool": [],
                                                  "map_locations": []}
+        # the visual odometer's previous frame (color, depth) as uploaded,
+        # on the device; the mapped frames that ran bundle adjustment
+        self._prev_frame = None
+        self.ba_frames: List[int] = []
+        self.wandb = WandbLogger(cfg, name=os.path.basename(self.output))
 
         # submaps + loop closure
         self.fm = FragmentManager(
@@ -400,6 +404,17 @@ class LoopySLAM:
         if t["const_speed_assumption"] and idx >= 2:
             delta = pre @ np.linalg.inv(self.estimate_c2w[idx - 2])
             init_c2w = delta @ pre
+        elif (t["visual_odometer"] and idx >= 2
+              and self._prev_frame is not None):
+            # direct RGB-D odometry from the previous frame as the motion
+            # model; the one host read of the frame's odometry
+            t0 = time.perf_counter()
+            pc, pd = self._prev_frame
+            T = rgbd_odometry(pc, pd, color, depth,
+                              (self.fx, self.fy, self.cx, self.cy))
+            init_c2w = pre @ np.linalg.inv(T.cpu().numpy())
+            self.timings.setdefault("odometry", []).append(
+                time.perf_counter() - t0)
         else:
             init_c2w = pre
         cam7 = torch.as_tensor(tensor_from_c2w(init_c2w), device=self.device)
@@ -436,6 +451,9 @@ class LoopySLAM:
                 print(f"idx:{idx}, tracking health gate: pose update "
                       f"REJECTED (total {int(th[1])}), kept motion-model "
                       f"pose; loss ema {th[0]:.3f}")
+        if self.wandb.enabled:
+            self.wandb.log({"idx_track": idx,
+                            "tracking_loss": float(best_loss)})
         return res.c2w44.cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -881,30 +899,73 @@ class LoopySLAM:
             dec_mask = trainable_mask(self.dec, {
                 **cfg, "mapping": {**m, "fix_color_decoder": True}})
 
+        # bundle adjustment once the window has more than 4 keyframes:
+        # the window's poses train as 7-vectors; the oldest keyframe and
+        # the repeats of the padded window stay fixed (only a frame's
+        # first row trains)
+        ba = None
+        if m["BA"] and not color_refine and len(self.keyframe_list) > 4:
+            kf_rows = [i for i in window if i is not None]
+            oldest = min(kf_rows) if kf_rows else None
+            seen = set()
+            rows = []
+            for i in window:
+                rows.append(1.0 if (i not in seen and i != oldest) else 0.0)
+                seen.add(i)
+            cams = np.stack([tensor_from_c2w(
+                cur_c2w if i is None else self.kf_est_c2w[i])
+                for i in window]).astype(np.float32)
+            ba = dict(cams=torch.as_tensor(cams, device=self.device),
+                      ba_row_mask=rows, ba_lr=float(m["BA_cam_lr"]),
+                      ba_window=(num * (m["geo_iter_ratio"] + 0.2),
+                                 num * (m["geo_iter_ratio"] + 0.3)))
+            self.ba_frames.append(idx)
+
         # the iteration budget runs in chunks of device_chunk_iters; each
         # chunk rebuilds the ray pool (and its k-NN) and the Adam state
         # threads on; the color stage starts its leaves afresh
-        # (mapper.start_color_stage), and each outer round of color
-        # refinement restarts Adam (its step count included)
+        # (mapper.start_color_stage; the BA poses go on), and each outer
+        # round of color refinement restarts Adam (its step count included)
         chunk = int(m.get("device_chunk_iters", 64))
         feat = self.map_state.feat
         aux = None
         for _ in range(5 if color_refine else 1):
             st = None
+            done = 0
             for g, c, first in mapper_mod.stage_chunks(n_geo, n_col, chunk):
                 if c and first and st is not None:
-                    st = mapper_mod.start_color_stage(st, self.dec,
-                                                      feat.shape[1] // 2)
+                    st = mapper_mod.start_color_stage(
+                        st, self.dec, feat.shape[1] // 2,
+                        with_cams=ba is not None)
                 out = mapper_mod.optimize_map(
                     self.dec, feat, st, dec_mask, feat_mask,
                     self.map_state.pos, self.map_state.grid, kc, kd, kp,
                     self.draw, g, c, lrs_geo, lrs_col, self.mopts,
                     self.ropts_mapper, pix_per_frame, kf_rq=krq,
-                    kf_exposure=kf_exp, exp=exp)
+                    kf_exposure=kf_exp, exp=exp,
+                    **({} if ba is None else {**ba, "iter_offset": done}))
                 feat, st, aux = out[:3]
                 if self.encode_exposure:
                     exp = out[3]
+                if ba is not None:
+                    ba["cams"] = out[-1]
+                done += g + c
         self.map_state = self.map_state._replace(feat=feat)
+        if ba is not None:
+            # the trained poses back into the trajectory: each keyframe's
+            # estimate (its first row) and the current frame's
+            new_cams = ba["cams"].cpu().numpy()
+            seen = set()
+            for row, i in enumerate(window):
+                if i in seen or rows[row] == 0.0:
+                    continue
+                seen.add(i)
+                c2w4 = np_c2w_from_tensor(new_cams[row])
+                if i is None:
+                    cur_c2w = c2w4
+                    self.estimate_c2w[idx] = c2w4
+                else:
+                    self.kf_est_c2w[i] = c2w4
         if self.encode_exposure:
             self.exposure_feat = exp
             if not color_refine:
@@ -915,13 +976,21 @@ class LoopySLAM:
                 os.makedirs(cd_dir, exist_ok=True)
                 save_checkpoint(os.path.join(cd_dir, f"{idx:05d}.pkl"),
                                 decoders_to_numpy(self.dec)["col"])
-        if self.verbose and aux is not None:
+        if (self.verbose or self.wandb.enabled) and aux is not None:
             g_, c_, n_, drop = torch.stack(
                 list(aux) + [self.map_state.grid.n_dropped.float()]
             ).cpu().tolist()
-            print(f"idx: {idx}, geo_loss_pixel: {g_ / max(n_, 1):.6f}, "
-                  f"color_loss_pixel: {c_ / max(n_, 1):.4f}, iters: {num}"
-                  + (f", knn_dropped: {int(drop)}" if drop else ""))
+            if self.verbose:
+                print(f"idx: {idx}, geo_loss_pixel: {g_ / max(n_, 1):.6f}, "
+                      f"color_loss_pixel: {c_ / max(n_, 1):.4f}, "
+                      f"iters: {num}"
+                      + (f", knn_dropped: {int(drop)}" if drop else ""))
+            self.wandb.log({"idx_map": idx,
+                            "geo_loss_pixel": g_ / max(n_, 1),
+                            "color_loss_pixel": c_ / max(n_, 1),
+                            "pts_total": self._count_host,
+                            "knn_dropped": int(drop),
+                            "num_joint_iters": num})
 
         # ---------------- keyframe bookkeeping ----------------
         ok_gt = np.isfinite(gt_c2w).all()
@@ -1125,6 +1194,12 @@ class LoopySLAM:
         if "np_rng_state" in r:
             self.nprng.bit_generator.state = r["np_rng_state"]
 
+        # the visual odometer's motion model needs the previous frame, as
+        # the run loop uploaded it
+        if self.cfg["tracking"]["visual_odometer"] and last_idx >= 0:
+            _, c_prev, d_prev, _ = self.dataset[last_idx]
+            self._prev_frame = _upload_frame(c_prev, d_prev, dev)
+
         if self.verbose:
             print(f"resumed from {ckpt_path}: frame {last_idx}, {count} "
                   f"points, {len(self.fm.fragments)} segments, "
@@ -1154,6 +1229,7 @@ class LoopySLAM:
             if self.verbose:
                 print(f"nothing to do: the checkpoint covers all "
                       f"{self.n_img} frames")
+            self.wandb.finish()
             return {"estimate_c2w": self.estimate_c2w,
                     "gt_c2w": self.gt_c2w,
                     "n_points": int(self.map_state.count)}
@@ -1254,6 +1330,9 @@ class LoopySLAM:
                         self.timings["color_refine"] = [
                             time.perf_counter() - t0]
 
+                if self.cfg["tracking"]["visual_odometer"]:
+                    self._prev_frame = (color, depth)
+
                 ckpt_freq = self.cfg["mapping"]["ckpt_freq"]
                 if (self.cfg["mapping"]["save_ckpts"] and idx > 0
                         and idx % ckpt_freq == 0):
@@ -1271,7 +1350,7 @@ class LoopySLAM:
             print(f"number of registration rounds: {len(reg)}, average: "
                   f"{np.mean(reg) if reg else float('nan'):.3f}s")
             for name in ("track", "map", "color_refine", "data", "upload",
-                         "vis"):
+                         "vis", "odometry"):
                 v = self.timings.get(name, [])
                 if v:
                     print(f"{name}: n={len(v)} median "
@@ -1435,6 +1514,8 @@ class LoopySLAM:
         }
         save_checkpoint(os.path.join(self.output, "ckpts",
                                      f"{last_idx:05d}.pkl"), ckpt)
+        if final:
+            self.wandb.finish()
 
 
 def _flatten(tree, prefix=""):

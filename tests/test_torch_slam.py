@@ -126,7 +126,7 @@ def _slice_cfg(**over):
 
 
 # ROADMAP.md Queue 1 items the port has: their settings pass check_slice
-PORTED_ITEMS = {10, 14, 15, 16}
+PORTED_ITEMS = {10, 11, 14, 15, 16, 17, 18, 19}
 
 
 @pytest.mark.parametrize("over,item", [
@@ -144,11 +144,12 @@ PORTED_ITEMS = {10, 14, 15, 16}
     ({"wandb": True}, 19),
 ])
 def test_features_outside_the_slice_raise(over, item):
-    """A feature of a ROADMAP item not yet ported raises, naming the item;
-    the settings of ported items (submaps, loop closure and color
-    refinement: item 10; the visualizer: item 14; the dynamic radius and
-    the color-gradient picks: item 15; exposure compensation: item 16)
-    pass."""
+    """A feature of a ROADMAP item not yet ported (multi-device: item 13)
+    raises, naming the item; the settings of ported items (submaps, loop
+    closure and color refinement: item 10; the visual odometer: item 11;
+    the visualizer: item 14; the dynamic radius and the color-gradient
+    picks: item 15; exposure compensation: item 16; bundle adjustment:
+    item 17; sample_near_pcl: item 18; the wandb shim: item 19) pass."""
     cfg = _slice_cfg(use_dynamic_radius=False,
                      rendering={"sample_near_pcl": False})
     check_slice(cfg)  # the slice's own settings pass
@@ -158,6 +159,16 @@ def test_features_outside_the_slice_raise(over, item):
         return
     with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
         check_slice(cfg)
+
+
+def test_base_yaml_passes_check_slice():
+    """configs/point_slam.yaml as the port loads it: sample_near_pcl on by
+    default, and nothing in it that the port refuses."""
+    from loopy_slam_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs", "point_slam.yaml"))
+    assert cfg["rendering"]["sample_near_pcl"]
+    check_slice(cfg)
 
 
 def test_visualizer_that_never_fires_is_accepted():

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--frames N] [--profile] [--variants]
                           [--dataset-runs N] [--base-runs N]
+                          [--tools-runs N] [--debug-index]
 
 Phases:
   1. the card's name and power limit, torch and CUDA versions;
@@ -80,8 +81,9 @@ Phases:
      traj.txt; 0.004 of the orbit a frame) on disk, and the CLI runs
      configs/Replica/room0.yaml as shipped on it (1500 tracking pixels x
      40 iterations, 5000 mapping pixels over a window of 12, 1500 first
-     iterations, color refinement, the final evaluation), only the input,
-     the output and both vis_freq (5) changed; prints a `replica:` line
+     iterations, the final evaluation), only the input, the output, both
+     vis_freq (5) and color refinement (off, for phase 12's time; four
+     paths keep it) changed; prints a `replica:` line
      (ATE, rejects, launches, the phase times, color refinement, psnr,
      mesh faces, peak memory, the host's read_jpeg and depth-PNG ms a
      frame) and gates on ATE < 1 cm, no rejects, launches > 0, psnr > 12,
@@ -124,7 +126,31 @@ Phases:
      rendered hole pixel with a finite depth > 0; then (11b) holds the
      kernel against its plain version at the probe's two shapes (the
      tracking probes, pixels x 25, and a render chunk's, 4096 x 25) at the
-     scalar radius_query.
+     scalar radius_query;
+ 12. runs the last inputs and the offline tools: (12a) `python -m
+     loopy_slam_torch.tools.pretrain_geo` (its main) at its shipped 4
+     scenes x 400 iterations, writing output/chip_smoke_tools/geo.pkl
+     (never pretrained/geo_decoder.pkl), with the kernel's count reset
+     just before; prints a `pretrain:` line (each scene's losses and
+     seconds, ms an iteration, launches, the held-out losses) and gates on
+     finite losses, the shipped trunk's keys, shapes and dtypes, finite
+     entries moved from their initial values, a held-out room's
+     frozen-trunk geometry loss below 0.8 of the initial trunk's, and
+     launches > 0; (12a') holds the kernel at its mapping pool; (12b) the
+     fixture writer's 6-frame Azure sequence (720x1280 JPEG, 16-bit depth,
+     scene/trajectory.log) through the CLI on configs/point_slam.yaml with
+     dataset azure, crop_size 384x512 and 12a's trunk (AZURE_OVERRIDES);
+     prints an `azure:` line (ATE, rejects, launches, the frames' shapes,
+     the loader's host ms a frame) and gates on ATE < 2 cm, no rejects,
+     launches > 0 and frames of crop_size; (12b') holds the kernel at its
+     tracking rays with per-query radii; (12c) writes 4 CoFusion frames
+     (PNG color, ZIP EXR depth) and loads them through get_dataset: the
+     depth must equal the written depth over png_depth_scale, bit for bit
+     (its `cofusion:` line has read_exr's ms a frame); (12d) runs
+     get_mesh_video (the 72-pose turntable, then every 5th pose) and viz_html
+     on phase 6's run directory, gated on PNGs with non-constant pixels
+     and an HTML payload that parses and holds the run's point and pose
+     counts (its `tools:` line).
 
 Prints a JSON line of per-kernel numbers, the script's seconds, then the
 card's name and power limit, then {"ok": true, "device": {...}} as the
@@ -132,11 +158,16 @@ last line. Exits non-zero (and prints no result) without a CUDA device or
 if any phase fails. `--dataset-runs N` runs only phases 9 and 10, N times
 each with their gates, for their run-to-run spread (no kernels line, no
 result line); `--base-runs N` runs only phases 11 and 11b (writing phase
-8's sequence first), N times.
+8's sequence first), N times; `--tools-runs N` runs only phase 12, N
+times (phase 6 first when its run directory has no mesh);
+`--debug-index` (a debugging mode, with `--base-runs`) checks every CUDA
+index op's indices on the device until the first mapped frame ends and
+prints the call sites out of range (IndexProbe: it clamps them, so gates
+do not hold in this mode).
 Imports nothing of JAX; needs no PyYAML, cv2 or PIL (phases 3-5 build
 their config from DEFAULTS, phases 6 and 8-10 read YAML with the port's
-own reader, and phases 8-10 write and read their PNGs and JPEGs with the
-port's codecs).
+own reader, and phases 8-12 write and read their PNGs, JPEGs and EXRs
+with the port's codecs; matplotlib is never called).
 """
 
 from __future__ import annotations
@@ -949,17 +980,18 @@ def render_chunk_check(overlay, device):
 
 
 def dataset_overlay(out: str, base_yaml: str, fixture: str,
-                    vis_freq: int) -> str:
+                    vis_freq: int, mapping=None) -> str:
     """A config overlay of a shipped dataset YAML that changes only the
-    input folder, the output directory and both vis_freq. Returns its
-    path."""
+    input folder, the output directory, both vis_freq and the `mapping`
+    entries given. Returns its path."""
     path = os.path.join(out, os.path.basename(base_yaml))
     with open(path, "w") as f:
         f.write(f"inherit_from: {json.dumps(base_yaml)}\n"
                 f"data: {{input_folder: {json.dumps(fixture)}, "
                 f"output: {json.dumps(out)}}}\n"
                 f"tracking: {{vis_freq: {vis_freq}}}\n"
-                f"mapping: {{vis_freq: {vis_freq}}}\n")
+                f"mapping: "
+                f"{json.dumps({'vis_freq': vis_freq, **(mapping or {})})}\n")
     return path
 
 
@@ -1299,8 +1331,10 @@ def jpeg_frame_costs(ds):
 # the Replica path: configs/Replica/room0.yaml as shipped on a sequence of
 # the synthetic room at Replica's 680x1200 geometry, written at the
 # Synthetic default of 0.004 a frame (~1.1 cm, Replica-like); cut to 6
-# frames (mapped frames 0 and 5). Gates: the room paths' band is <= 3 mm,
-# so < 1 cm still fails a session that loses track (decimeters off)
+# frames (mapped frames 0 and 5) and color refinement off (49-95 s of the
+# phase on an H100, for the time of phase 12; the segmented, CLI, TUM and
+# ScanNet paths keep it). Gates: the room paths' band is <= 3 mm, so < 1 cm
+# still fails a session that loses track (decimeters off)
 REPLICA_FRAMES = 6
 REPLICA_SPEED = 0.004
 REPLICA_VIS_FREQ = 5
@@ -1329,7 +1363,7 @@ def replica_phase():
     fixture_s = time.perf_counter() - t0
     overlay = dataset_overlay(
         out, os.path.join(HERE, "configs", "Replica", "room0.yaml"),
-        fixture, REPLICA_VIS_FREQ)
+        fixture, REPLICA_VIS_FREQ, mapping={"color_refine": False})
     stats, extra = run_dataset_path(overlay, out)
     ds = get_dataset(load_config(overlay))
     jpg_ms, png_ms, _ = jpeg_frame_costs(ds)
@@ -1726,6 +1760,581 @@ def base_kernel_check(overlay, device):
     return results
 
 
+# phase 12, the last inputs and the offline tools. 12a: pretrain_geo at its
+# shipped 4 scenes x 400 iterations (the tool's widths: 120x160, 400 pixels
+# a frame); the trunk it writes goes to output/, never over
+# pretrained/geo_decoder.pkl. Its learning is gated on a room it never saw
+# (the seed's next box draw): the geometry loss a pixel after
+# HELDOUT_ITERS frozen-trunk geometry iterations from fresh features, as a
+# session maps with fix_geo_decoder, with the trained trunk below
+# HELDOUT_RATIO_GATE of the initial trunk's.
+TOOLS_OUT = os.path.join(HERE, "output", "chip_smoke_tools")
+PRETRAIN_SCENES, PRETRAIN_ITERS, PRETRAIN_SEED = 4, 400, 7
+HELDOUT_ITERS = 60
+HELDOUT_RATIO_GATE = 0.8
+# 12b: the Azure Kinect layout through the CLI on configs/point_slam.yaml
+# (sample_near_pcl, the dynamic radius, submaps, 200 tracking pixels x 20
+# iterations, 1000 mapping pixels over a window of 5, all as shipped) with
+# dataset azure, the writer's 720x1280 camera and crop_size 384x512
+# (unequal x and y scales), the geometry trunk 12a trained. Depth cuts:
+# 6 frames, mapping 500 first / 100 iterations (1500 / 400, as the
+# base-config path cuts them), color refinement, the final evaluation and
+# the visualizer off.
+AZURE_FRAMES = 6
+AZURE_SPEED = 1.0 / 200.0
+AZURE_CROP = [384, 512]
+AZURE_OVERRIDES = {
+    "dataset": "azure",
+    "tracking": {"vis_freq": 0},
+    "mapping": {"iters_first": 500, "iters": 100, "color_refine": False,
+                "vis_freq": 0},
+    "meshing": {"eval_rec": False},
+}
+# 12c: CoFusion's layout (PNG color, ZIP EXR depth), loaded only: it has
+# no poses, so no ATE to gate a session on
+COFUSION_FRAMES = 4
+# 12d: mesh video frames, the 72-pose turntable and every 5th pose
+MESH_VIDEO_EVERY = 5
+
+
+def pretrain_phase(device):
+    """12a: `python -m loopy_slam_torch.tools.pretrain_geo` (its main)
+    with the kernel's launch count reset just before and read just after;
+    then the written trunk against the shipped one's layout and its
+    initial values, and the held-out check. Returns (summary, trunk
+    path)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch.convert import decoders_to_numpy
+    from loopy_slam_torch.models.decoder import init_decoders
+    from loopy_slam_torch.ops import knn
+    from loopy_slam_torch.slam import _flatten
+    from loopy_slam_torch.tools import pretrain_geo
+
+    print(f"== phase 12a: pretrain_geo, {PRETRAIN_SCENES} scenes x "
+          f"{PRETRAIN_ITERS} iterations", flush=True)
+    os.makedirs(TOOLS_OUT, exist_ok=True)
+    out = os.path.join(TOOLS_OUT, "geo.pkl")
+    knn.KNN_SELECT_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    _, scenes = pretrain_geo.main(
+        ["--scenes", str(PRETRAIN_SCENES), "--iters", str(PRETRAIN_ITERS),
+         "--seed", str(PRETRAIN_SEED), "--out", out])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = knn.KNN_SELECT_LAUNCHES.count
+    with open(out, "rb") as f:
+        got = dict(_flatten(pickle.load(f)))
+    with open(os.path.join(HERE, "pretrained", "geo_decoder.pkl"),
+              "rb") as f:
+        shipped = dict(_flatten(pickle.load(f)))
+    cfg = pretrain_geo.pretrain_config()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(PRETRAIN_SEED)
+    init = decoders_to_numpy(init_decoders(gen, cfg, device=device))
+    init_geo = dict(_flatten(init["geo"]))
+    moved = max(float(np.abs(got[n] - init_geo[n]).max()) for n in got)
+    with open(out, "rb") as f:
+        geo = pickle.load(f)
+    t0 = time.perf_counter()
+    trained_loss = heldout_geo_loss(geo, init["col"], device)
+    initial_loss = heldout_geo_loss(init["geo"], init["col"], device)
+    heldout_s = time.perf_counter() - t0
+    layout_ok = sorted(got) == sorted(shipped) and all(
+        got[n].shape == np.asarray(shipped[n]).shape
+        and got[n].dtype == np.asarray(shipped[n]).dtype for n in shipped)
+    summary = {
+        "scenes": scenes, "iters": PRETRAIN_ITERS, "run_s": run_s,
+        "s_per_scene": [r["seconds"] for r in scenes],
+        "ms_per_iteration": [r["seconds"] / PRETRAIN_ITERS * 1e3
+                             for r in scenes],
+        "knn_select_launches": launches, "trunk_layout_ok": layout_ok,
+        "trunk_finite": all(bool(np.isfinite(a).all()) for a in got.values()),
+        "trunk_max_move": moved,
+        "heldout_geo_loss_trained": trained_loss,
+        "heldout_geo_loss_initial": initial_loss,
+        "heldout_ratio": trained_loss / max(initial_loss, 1e-30),
+        "heldout_s": heldout_s}
+    print("pretrain:", json.dumps(summary), flush=True)
+    failures = []
+    for s, r in enumerate(scenes):
+        if not np.isfinite([r["geo_loss_pixel"], r["color_loss_pixel"]]).all():
+            failures.append(f"scene {s}'s loss is not finite: {r}")
+    if not layout_ok:
+        failures.append("the trunk's keys, shapes or dtypes differ from "
+                        "pretrained/geo_decoder.pkl's")
+    if not summary["trunk_finite"]:
+        failures.append("the trunk has non-finite entries")
+    if not moved > 0:
+        failures.append("the trunk equals its initial values")
+    if not summary["heldout_ratio"] < HELDOUT_RATIO_GATE:
+        failures.append(f"held-out geometry loss {trained_loss} with the "
+                        f"trained trunk, {initial_loss} with the initial "
+                        f"one: ratio not < {HELDOUT_RATIO_GATE}")
+    if launches <= 0:
+        failures.append("pretrain_geo never launched the knn_select kernel")
+    if failures:
+        raise AssertionError("phase 12a: " + "; ".join(failures))
+    return summary, out
+
+
+def heldout_geo_loss(geo, col, device):
+    """The geometry loss a pixel on a room pretraining did not see (the
+    seed's box draw after the trained scenes) after HELDOUT_ITERS
+    geometry iterations with the trunk frozen, from fresh features, with
+    the same draws for every trunk."""
+    import torch
+
+    from loopy_slam_torch.convert import decoders_from_numpy
+    from loopy_slam_torch.mapping.mapper import MapperOptions, optimize_map
+    from loopy_slam_torch.mapping.point_cloud import valid_mask
+    from loopy_slam_torch.models.decoder import trainable_mask
+    from loopy_slam_torch.models.renderer import RenderOptions
+    from loopy_slam_torch.ops.draws import TorchDraws
+    from loopy_slam_torch.tools import pretrain_geo as pg
+
+    cfg = pg.pretrain_config()
+    scfg = pg.scene_configs(cfg, PRETRAIN_SCENES + 1, PRETRAIN_SEED)[-1]
+    scfg["mapping"]["fix_geo_decoder"] = True
+    draw = TorchDraws(123, device)
+    state, kc, kd, kp = pg.map_scene(scfg, draw, device)
+    dec = decoders_from_numpy({"geo": geo, "col": col}, device,
+                              bf16_trunks=cfg["model"]["bf16_trunks"])
+    _, _, aux = optimize_map(
+        dec, state.feat, None, trainable_mask(dec, scfg), valid_mask(state),
+        state.pos, state.grid, kc, kd, kp, draw, HELDOUT_ITERS, 0,
+        list(pg.LRS_GEO), list(pg.LRS_COL), MapperOptions.from_cfg(scfg),
+        RenderOptions.from_cfg(scfg), pg.PIXELS)
+    g, _, n = torch.stack(list(aux)).tolist()
+    return g / max(n, 1)
+
+
+def pretrain_kernel_check(device):
+    """The kernel against its plain version at pretrain_geo's mapping pool:
+    a map of the last scene by the tool's own insertion (3000 rays of
+    every second frame), pixel_pool_factor x 400 rays of each of its 4
+    keyframes, N_surface samples each, at the scalar radius_query."""
+    import torch
+
+    from loopy_slam_torch.ops.draws import TorchDraws
+    from loopy_slam_torch.slam import update_cam
+    from loopy_slam_torch.tools import pretrain_geo as pg
+
+    print("== phase 12a': knn_select at pretrain_geo's mapping pool",
+          flush=True)
+    cfg = pg.pretrain_config()
+    scfg = pg.scene_configs(cfg, PRETRAIN_SCENES, PRETRAIN_SEED)[-1]
+    state, kc, kd, kp = pg.map_scene(scfg, TorchDraws(12, device), device)
+    pc = scfg["pointcloud"]
+    views = [(None, kd[f], kp[f], torch.full_like(kd[f], pc["radius_query"]))
+             for f in range(kc.shape[0])]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    per_frame = scfg["mapping"]["pixel_pool_factor"] * pg.PIXELS
+    q, _ = radius_pool_queries(views, per_frame, update_cam(scfg),
+                               scfg["rendering"], gen)
+    grid = state.grid
+    M, T = grid.cell_data.shape[1], grid.cell_data.shape[0] - 1
+    return check_shape(
+        f"pretrain_map_pool Q={q.shape[0]} F={len(views)} M={M} T={T}",
+        grid, q, pc["nn_num"], pc["radius_query"])
+
+
+def azure_phase(geo_path):
+    """12b: the port's writer puts an Azure-layout sequence on disk, then
+    the CLI runs configs/point_slam.yaml with dataset azure and crop_size
+    on it (AZURE_OVERRIDES), with 12a's trunk. Returns (summary, overlay
+    path)."""
+    import shutil
+
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.tools.make_sensor_fixtures import (AZURE_CAM,
+                                                             write_azure)
+    from loopy_slam_torch.utils.datasets import get_dataset
+
+    print(f"== phase 12b: the Azure layout with crop_size {AZURE_CROP}, "
+          f"point_slam.yaml on {AZURE_FRAMES} frames", flush=True)
+    out = os.path.join(HERE, "output", "chip_smoke_azure")
+    shutil.rmtree(out, ignore_errors=True)
+    fixture = os.path.join(out, "sequence")
+    t0 = time.perf_counter()
+    write_azure(fixture, AZURE_FRAMES, AZURE_SPEED)
+    fixture_s = time.perf_counter() - t0
+    overlay = os.path.join(out, "azure.yaml")
+    with open(overlay, "w") as f:
+        f.write("inherit_from: " + json.dumps(os.path.join(
+            HERE, "configs", "point_slam.yaml")) + "\n")
+        f.write("data: " + json.dumps({"input_folder": fixture,
+                                        "output": out}) + "\n")
+        f.write("cam: " + json.dumps({**AZURE_CAM,
+                                       "crop_size": AZURE_CROP}) + "\n")
+        f.write("pretrained_decoders: "
+                + json.dumps({"middle_fine": geo_path}) + "\n")
+        for k, v in AZURE_OVERRIDES.items():
+            f.write(f"{k}: {json.dumps(v)}\n")
+    stats, extra = run_dataset_path(overlay, out)
+    ds = get_dataset(load_config(overlay))
+    frames = [ds[i] for i in range(len(ds))]
+    shapes = sorted({(tuple(c.shape[:2]), tuple(d.shape))
+                     for _, c, d, _ in frames})
+    summary = session_summary(stats, {
+        **extra, "frames": len(ds), "shapes": shapes,
+        "loader_ms": azure_frame_costs(ds), "fixture_write_s": fixture_s})
+    print("azure:", json.dumps(summary), flush=True)
+    failures = []
+    if not summary["ate_rmse_m"] < TUM_ATE_GATE_M:
+        failures.append(f"ATE {summary['ate_rmse_m']} m not < "
+                        f"{TUM_ATE_GATE_M} m")
+    if summary["health_rejects"]:
+        failures.append(f"{summary['health_rejects']} health-gate rejects")
+    if extra["knn_select_launches"] <= 0:
+        failures.append("the Azure path never launched the knn_select "
+                        "kernel")
+    if shapes != [(tuple(AZURE_CROP), tuple(AZURE_CROP))]:
+        failures.append(f"loaded frames of shapes {shapes}, not crop_size "
+                        f"{AZURE_CROP}")
+    if failures:
+        raise AssertionError("phase 12b: " + "; ".join(failures))
+    return summary, overlay
+
+
+def azure_frame_costs(ds):
+    """Median host ms a frame of the Azure loader's steps: read_jpeg of
+    the color, read_png of the depth, and the crop_size resizes
+    (resize_linear of the float color, resize_nearest of the depth)."""
+    import numpy as np
+
+    from loopy_slam_torch.utils.imageio import (read_jpeg, read_png,
+                                                resize_linear,
+                                                resize_nearest)
+
+    ch, cw = ds.crop_size
+    times = {"read_jpeg": [], "depth_png": [], "resize_linear": [],
+             "resize_nearest": []}
+    for cp, dp in zip(ds.color_paths, ds.depth_paths):
+        t0 = time.perf_counter()
+        color = read_jpeg(cp)
+        t1 = time.perf_counter()
+        depth = read_png(dp).astype(np.float32)
+        t2 = time.perf_counter()
+        resize_linear(color.astype(np.float32) / 255.0, (cw, ch))
+        t3 = time.perf_counter()
+        resize_nearest(depth, (cw, ch))
+        t4 = time.perf_counter()
+        for k, v in zip(times, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            times[k].append(v)
+    return {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+
+
+def azure_kernel_check(overlay, device):
+    """The kernel against its plain version at the Azure session's
+    tracking queries, with per-query radii, over that path's final map:
+    with sample_near_pcl the tracker keeps no pool, so an iteration
+    queries its `pixels` rays (inside the ignored edges of the last frame,
+    at its estimated pose) x N_surface samples."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.slam import update_cam
+    from loopy_slam_torch.utils.datasets import get_dataset
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    print("== phase 12b': knn_select at the Azure tracking queries, "
+          "per-query radii", flush=True)
+    cfg = load_config(overlay)
+    ck = load_checkpoint(cli.latest_checkpoint(cfg["data"]["output"]))
+    grid = checkpoint_grid(cfg, ck, device)
+    ds = get_dataset(cfg)
+    cam, t = update_cam(cfg), cfg["tracking"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    jj, ii = np.mgrid[t["ignore_edge_H"]:cam["H"] - t["ignore_edge_H"],
+                      t["ignore_edge_W"]:cam["W"] - t["ignore_edge_W"]]
+    flat = torch.as_tensor((jj * cam["W"] + ii).ravel(), device=device)
+    q, r = radius_pool_queries(
+        [frame_view(cfg, ck, ds, device, len(ds) - 1)], t["pixels"], cam,
+        cfg["rendering"], gen, pools=[flat])
+    M, T = grid.cell_data.shape[1], grid.cell_data.shape[0] - 1
+    return check_shape(f"azure_track_rays Q={q.shape[0]} M={M} T={T}",
+                       grid, q, cfg["pointcloud"]["nn_num"], r)
+
+
+def cofusion_phase():
+    """12c: a CoFusion-layout sequence (PNG color, ZIP EXR depth through
+    the port's write_exr) loaded through get_dataset; its depth must be
+    the written depth over png_depth_scale, bit for bit."""
+    import copy as _copy
+    import shutil
+
+    import numpy as np
+
+    from loopy_slam_torch.config import DEFAULTS
+    from loopy_slam_torch.tools.make_sensor_fixtures import (
+        COFUSION_CAM, make_dataset, write_cofusion)
+    from loopy_slam_torch.utils.datasets import get_dataset
+    from loopy_slam_torch.utils.exr import read_exr
+
+    print(f"== phase 12c: the CoFusion layout, {COFUSION_FRAMES} frames "
+          "of EXR depth", flush=True)
+    out = os.path.join(HERE, "output", "chip_smoke_cofusion")
+    shutil.rmtree(out, ignore_errors=True)
+    speed = AZURE_SPEED
+    t0 = time.perf_counter()
+    write_cofusion(out, COFUSION_FRAMES, speed)
+    fixture_s = time.perf_counter() - t0
+    cfg = _copy.deepcopy(DEFAULTS)
+    cfg.update(dataset="cofusion")
+    cfg["cam"] = dict(COFUSION_CAM)
+    cfg["data"] = {**cfg["data"], "input_folder": out}
+    ds = get_dataset(cfg)
+    render = make_dataset(COFUSION_CAM, COFUSION_FRAMES, speed)
+    scale = np.float32(COFUSION_CAM["png_depth_scale"])
+    equal, exr_s = [], []
+    for i in range(len(ds)):
+        _, color, depth, pose = ds[i]
+        _, want = render.render_frame(render.poses[i])
+        want = (want.astype(np.float32) * scale) / scale
+        equal.append(bool(np.array_equal(depth, want))
+                     and color.shape == (COFUSION_CAM["H"],
+                                         COFUSION_CAM["W"], 3)
+                     and bool(np.array_equal(pose, np.eye(4))))
+        t0 = time.perf_counter()
+        read_exr(ds.depth_paths[i])
+        exr_s.append(time.perf_counter() - t0)
+    summary = {"frames": len(ds), "frames_equal": equal,
+               "read_exr_ms_per_frame": float(np.median(exr_s)) * 1e3,
+               "fixture_write_s": fixture_s}
+    print("cofusion:", json.dumps(summary), flush=True)
+    if len(ds) != COFUSION_FRAMES or not all(equal):
+        raise AssertionError(f"phase 12c: frames loaded {len(ds)}, equal "
+                             f"to the written depth {equal}")
+    return summary
+
+
+def tools_phase(run_dir):
+    """12d: get_mesh_video (a turntable, then along the trajectory) and
+    viz_html on a run directory. Gates: PNG frames with non-constant
+    pixels; an HTML whose payload parses and holds the run's point and
+    pose counts."""
+    import re
+
+    import numpy as np
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.tools import get_mesh_video, viz_html
+    from loopy_slam_torch.utils.imageio import read_png
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    print(f"== phase 12d: get_mesh_video and viz_html on {run_dir}",
+          flush=True)
+    failures, frame_s = [], {}
+    for mode, argv in (("orbit", ["--orbit"]),
+                       ("trajectory", ["--every", str(MESH_VIDEO_EVERY)])):
+        t0 = time.perf_counter()
+        paths, _ = get_mesh_video.main(["--output", run_dir, *argv])
+        frame_s[mode] = (time.perf_counter() - t0) / max(len(paths), 1)
+        flat = [p for p in paths if np.ptp(read_png(p)) == 0]
+        if not paths or flat:
+            failures.append(f"{mode}: {len(paths)} frames, constant: "
+                            f"{flat}")
+    t0 = time.perf_counter()
+    html_path = viz_html.main(["--output", run_dir])
+    html_s = time.perf_counter() - t0
+    with open(html_path) as f:
+        m = re.search(r"const D = (\{.*?\});\n", f.read(), re.S)
+    payload = json.loads(m.group(1)) if m else {}
+    ck = load_checkpoint(cli.latest_checkpoint(run_dir))
+    npy = os.path.join(run_dir, "final_point_cloud.npy")
+    n_pts = len(np.load(npy)) if os.path.exists(npy) else len(
+        ck.get("map", {}).get("pos", ()))
+    want = {"n_pts": min(n_pts, 200000), "n_frames": int(ck["idx"]) + 1}
+    got = {k: payload.get(k) for k in want}
+    if got != want:
+        failures.append(f"viz_html payload {got}, the run's {want}")
+    summary = {"run_dir": os.path.relpath(run_dir, HERE),
+               "mesh_video_s_per_frame": frame_s, "viz_html_s": html_s,
+               "viz_html_payload": got,
+               "html_bytes": os.path.getsize(html_path)}
+    print("tools:", json.dumps(summary), flush=True)
+    if failures:
+        raise AssertionError("phase 12d: " + "; ".join(failures))
+    return summary
+
+
+def inputs_tools_phase(device, run_dir):
+    """Phase 12 in order: 12a and its pool's check, 12b and its check,
+    12c, 12d on run_dir. Returns (pretrain summary, azure summary, the two
+    shape results, the whole phase's seconds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    pre, geo_path = pretrain_phase(device)
+    shapes = [pretrain_kernel_check(device)]
+    torch.cuda.empty_cache()
+    azure, azure_cfg = azure_phase(geo_path)
+    shapes.append(azure_kernel_check(azure_cfg, device))
+    torch.cuda.empty_cache()
+    cofusion_phase()
+    tools_phase(run_dir)
+    phase_s = time.perf_counter() - t0
+    print(f"phase 12: {phase_s:.1f} s", flush=True)
+    return pre, azure, shapes, phase_s
+
+
+class IndexProbe:
+    """--debug-index: every integer index a CUDA indexing op receives
+    (advanced indexing, index_select, gather, index_add_, index_copy_,
+    scatter_, scatter_reduce_) is checked against its dimension on the
+    device, without a host sync: each call site keeps a running
+    (min, max, calls out of range) in device memory. The index is then
+    clamped into range, so an out-of-range one does not kill the context
+    with a device-side assert and can be reported; results in this mode
+    are for finding the op, not for gates. The records are read once,
+    after the first mapped frame (`report`), and the probe then comes off.
+    Changes nothing in the package: the ops are wrapped in this process
+    only."""
+
+    OPS = (("Tensor", "__getitem__"), ("Tensor", "__setitem__"),
+           ("Tensor", "index_select"), ("torch", "index_select"),
+           ("Tensor", "gather"), ("torch", "gather"),
+           ("Tensor", "index_add_"), ("Tensor", "index_copy_"),
+           ("Tensor", "scatter_"), ("Tensor", "scatter_reduce_"))
+
+    def __init__(self):
+        self.sites = {}  # (where, op, dim size) -> device int64 (3,)
+        self.saved = []
+
+    @staticmethod
+    def _where():
+        f = sys._getframe(2)
+        while f is not None and "loopy_slam_torch" not in f.f_code.co_filename:
+            f = f.f_back
+        if f is None:
+            return "?"
+        return (f"{os.path.relpath(f.f_code.co_filename, HERE)}:"
+                f"{f.f_lineno}")
+
+    def _check(self, op, idx, size):
+        import torch
+
+        if not (isinstance(idx, torch.Tensor) and idx.is_cuda
+                and idx.numel() and not idx.dtype.is_floating_point
+                and idx.dtype != torch.bool):
+            return idx
+        key = (self._where(), op, int(size))
+        lo, hi = torch.aminmax(idx.long())
+        bad = ((idx < -size) | (idx >= size)).any().long()
+        rec = self.sites.get(key)
+        new = torch.stack([lo, hi, bad])
+        if rec is None:
+            self.sites[key] = new
+        else:
+            rec[0] = torch.minimum(rec[0], lo)
+            rec[1] = torch.maximum(rec[1], hi)
+            rec[2] += bad
+        return idx.clamp(-size, size - 1)
+
+    def _index_tuple(self, op, t, index):
+        import torch
+
+        items = index if isinstance(index, tuple) else (index,)
+        out, dim = [], 0
+        for it in items:
+            if it is None:
+                out.append(it)
+                continue
+            if it is Ellipsis:  # dims after it are not tracked
+                return index
+            if isinstance(it, torch.Tensor) and it.dtype == torch.bool:
+                out.append(it)
+                dim += it.dim()
+                continue
+            if dim < t.dim():
+                it = self._check(op, it, t.shape[dim])
+            out.append(it)
+            dim += 1
+        return tuple(out) if isinstance(index, tuple) else out[0]
+
+    def install(self):
+        import torch
+
+        probe = self
+        T = torch.Tensor
+        owners = {"Tensor": T, "torch": torch}
+        orig = {(owner, name): getattr(owners[owner], name)
+                for owner, name in self.OPS}
+        self.saved = [(owners[owner], name, orig[(owner, name)])
+                      for owner, name in self.OPS]
+
+        def getitem(t, index):
+            if t.is_cuda:
+                index = probe._index_tuple("getitem", t, index)
+            return orig[("Tensor", "__getitem__")](t, index)
+
+        def setitem(t, index, value):
+            if t.is_cuda:
+                index = probe._index_tuple("setitem", t, index)
+            return orig[("Tensor", "__setitem__")](t, index, value)
+
+        def dim_op(fn, name):
+            def wrapped(t, dim, index, *a, **kw):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    d = dim % max(t.dim(), 1)
+                    index = probe._check(name, index, t.shape[d])
+                return fn(t, dim, index, *a, **kw)
+            return wrapped
+
+        T.__getitem__ = getitem
+        T.__setitem__ = setitem
+        for owner, name in self.OPS[2:]:
+            setattr(owners[owner], name, dim_op(orig[(owner, name)], name))
+
+    def uninstall(self):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        self.saved = []
+
+    def report(self, what):
+        import torch
+
+        self.uninstall()
+        torch.cuda.synchronize()
+        keys = list(self.sites)
+        vals = (torch.stack([self.sites[k] for k in keys]).tolist()
+                if keys else [])
+        bad = [{"site": k[0], "op": k[1], "size": k[2], "min": v[0],
+                "max": v[1], "calls_out_of_range": v[2]}
+               for k, v in zip(keys, vals) if v[2]]
+        print(f"index probe ({what}): {len(keys)} call sites, "
+              f"{len(bad)} out of range: {json.dumps(bad)}", flush=True)
+        return bad
+
+
+def install_index_probe():
+    """Put an IndexProbe on every op until the first mapped frame ends,
+    then print its report (the `--debug-index` mode)."""
+    from loopy_slam_torch.slam import LoopySLAM
+
+    probe = IndexProbe()
+    probe.install()
+    map_frame = LoopySLAM.map_frame
+
+    def first_map_frame(self, idx, *a, **kw):
+        try:
+            return map_frame(self, idx, *a, **kw)
+        finally:
+            if probe.saved:
+                probe.report(f"through map_frame({idx})")
+            LoopySLAM.map_frame = map_frame
+    LoopySLAM.map_frame = first_map_frame
+    return probe
+
+
 def profile_phase(device, n_frames=6, top=15):
     """Device time by kernel over a short session, and the busy share."""
     import torch
@@ -1782,6 +2391,15 @@ def main(argv=None) -> int:
     ap.add_argument("--base-runs", type=int, default=0,
                     help="run only the base-config path and its kernel "
                          "check, this many times (prints no result)")
+    ap.add_argument("--tools-runs", type=int, default=0,
+                    help="run only phase 12 (the last inputs and the "
+                         "tools), this many times (prints no result; "
+                         "runs phase 6 first for 12d's run directory)")
+    ap.add_argument("--debug-index", action="store_true",
+                    help="check every CUDA index op's indices on the "
+                         "device until the first mapped frame ends, and "
+                         "report the out-of-range call sites (debugging; "
+                         "clamps them, so gates do not hold)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1816,9 +2434,20 @@ def main(argv=None) -> int:
             scannet_phase()
         return 0
     if args.base_runs:
+        if args.debug_index:
+            install_index_probe()
         for _ in range(args.base_runs):
             _, base_cfg = base_phase(device)
             base_kernel_check(base_cfg, device)
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+        return 0
+    cli_dir = os.path.join(HERE, "output", "chip_smoke_cli")
+    if args.tools_runs:
+        if not os.path.exists(os.path.join(cli_dir, "mesh",
+                                           "final_mesh.ply")):
+            cli_phase()
+        for _ in range(args.tools_runs):
+            inputs_tools_phase(device, cli_dir)
         print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -1844,6 +2473,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     base_summary, base_cfg = base_phase(device)
     shape_results += base_kernel_check(base_cfg, device)
+    torch.cuda.empty_cache()
+    pre_summary, azure_summary, shapes, _ = inputs_tools_phase(device,
+                                                               cli_dir)
+    shape_results += shapes
     if args.profile:
         profile_phase(device)
 
@@ -1854,7 +2487,8 @@ def main(argv=None) -> int:
         ("slice1", summary), ("segmented", seg_summary),
         ("cli", cli_summary), ("tum", tum_summary),
         ("replica", replica_summary), ("scannet", scannet_summary),
-        ("base", base_summary))}
+        ("base", base_summary), ("pretrain", pre_summary),
+        ("azure", azure_summary))}
     entry = {
         "name": "knn_select", "route": "cuda",
         "source": "loopy_slam_torch/csrc/knn_select.cu",

@@ -2,13 +2,16 @@
 
     python -m loopy_slam_torch.run configs/Synthetic/room.yaml
         [--output DIR] [--stop N] [--resume [CKPT]] [--device cuda|cpu]
+        [--wandb | --no_wandb]
 
 Runs tracking and mapping on the CUDA card (or the given device), prints
 the trajectory's ATE and, on a run that was not stopped early with
 rendering.eval_img or meshing.eval_rec on, the final evaluation (render
 and reconstruction metrics). `--resume` continues a run from a checkpoint:
 a .pkl path, or bare for the newest one in <output>/ckpts. The YAML files
-are read by the port's own reader (no PyYAML needed).
+are read by the port's own reader (no PyYAML needed). `--wandb` and
+`--no_wandb` set the config's `wandb` (the losses go to wandb when it is
+set and wandb imports); without either the YAML's value stands.
 """
 
 import argparse
@@ -57,6 +60,9 @@ def main(argv=None):
                              "<output>/ckpts")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card)")
+    parser.add_argument("--wandb", dest="wandb", action="store_true")
+    parser.add_argument("--no_wandb", dest="wandb", action="store_false")
+    parser.set_defaults(wandb=None)
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config)
@@ -64,6 +70,8 @@ def main(argv=None):
         cfg["data"]["input_folder"] = args.input_folder
     if args.output is not None:
         cfg["data"]["output"] = args.output
+    if args.wandb is not None:
+        cfg["wandb"] = args.wandb
     if args.stop:
         cfg["stop"] = args.stop
         cfg["mapping"]["ckpt_freq"] = args.stop

@@ -1,8 +1,10 @@
 """ATE RMSE evaluation, aligned (Horn) and un-aligned (port of
-loopy_slam_tpu/tools/eval_ate.py: the checkpoint mode and the TUM-file
-mode; the `--plot` figure, which needs matplotlib, is not ported).
+loopy_slam_tpu/tools/eval_ate.py: the checkpoint mode, with `--plot`'s
+top-view figure <output>/ate.png, and the TUM-file mode). matplotlib is
+imported only for the figure (the CUDA machine has none).
 
 CLI:  python -m loopy_slam_torch.tools.eval_ate --output DIR [--no_align]
+          [--plot]
       python -m loopy_slam_torch.tools.eval_ate --est_traj F --gt_traj F
           [--offset S] [--max_difference S] [--scale X] [--no_align]
 """
@@ -148,8 +150,11 @@ def evaluate_tum_files(est_path: str, gt_path: str, offset: float = 0.0,
     return evaluate_trajectories(est_c2w, gt_c2w)
 
 
-def evaluate_from_output(output_dir: str) -> Dict[str, float]:
-    """ATE of the latest checkpoint under <output_dir>/ckpts."""
+def evaluate_from_output(output_dir: str, plot: bool = False
+                         ) -> Dict[str, float]:
+    """ATE of the latest checkpoint under <output_dir>/ckpts; with plot,
+    also the estimated and ground-truth trajectories' top view (x-z) in
+    <output_dir>/ate.png."""
     from ..utils.io import load_checkpoint
 
     ckpts = sorted(glob.glob(os.path.join(output_dir, "ckpts", "*.pkl")))
@@ -157,8 +162,22 @@ def evaluate_from_output(output_dir: str) -> Dict[str, float]:
         raise FileNotFoundError(f"no checkpoints under {output_dir}/ckpts")
     ck = load_checkpoint(ckpts[-1])
     n = ck["idx"] + 1
-    return evaluate_trajectories(ck["estimate_c2w_list"][:n],
-                                 ck["gt_c2w_list"][:n])
+    stats = evaluate_trajectories(ck["estimate_c2w_list"][:n],
+                                  ck["gt_c2w_list"][:n])
+    if plot:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        est = ck["estimate_c2w_list"][:n][:, :3, 3]
+        gt = ck["gt_c2w_list"][:n][:, :3, 3]
+        fig, ax = plt.subplots()
+        ax.plot(gt[:, 0], gt[:, 2], "k-", label="ground truth")
+        ax.plot(est[:, 0], est[:, 2], "b-", label="estimated")
+        ax.legend()
+        ax.set_title(f"ATE RMSE {stats['rmse'] * 100:.2f} cm")
+        fig.savefig(os.path.join(output_dir, "ate.png"), dpi=120)
+        plt.close(fig)
+    return stats
 
 
 def main(argv=None):
@@ -174,6 +193,8 @@ def main(argv=None):
     ap.add_argument("--max_difference", type=float, default=0.02)
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--no_align", action="store_true")
+    ap.add_argument("--plot", action="store_true",
+                    help="also write <output>/ate.png (needs matplotlib)")
     args = ap.parse_args(argv)
     if args.est_traj or args.gt_traj:
         if not (args.est_traj and args.gt_traj):
@@ -182,7 +203,7 @@ def main(argv=None):
                                    args.offset, args.max_difference,
                                    args.scale)
     elif args.output:
-        stats = evaluate_from_output(args.output)
+        stats = evaluate_from_output(args.output, args.plot)
     else:
         ap.error("pass --output DIR or --est_traj/--gt_traj files")
     key = "rmse_no_align" if args.no_align else "rmse"

@@ -1,5 +1,6 @@
-"""Write the procedural Synthetic scene to disk as a TUM RGB-D, ScanNet or
-Replica sequence, without cv2 (the card's machine has none).
+"""Write the procedural Synthetic scene to disk as a TUM RGB-D, ScanNet,
+Replica, Azure Kinect or CoFusion sequence, without cv2 (the card's
+machine has none).
 
 TUM (--format tum):
   rgb/<t>.png     8-bit RGB, distorted with freiburg1's published
@@ -25,10 +26,25 @@ Replica (--format replica):
   results/depth%06d.png  16-bit at 6553.5 per meter;
   traj.txt               the Y/Z-flipped c2w of each frame, one line each.
 
-These are the port's counterparts of scripts/make_sensor_fixtures.py (TUM,
-ScanNet) and scripts/make_replica_fixture.py and draw the same numbers
-from the same seeds, so the text files are the same and the images come
-from the same renders. The JPEGs go through the port's writer, which
+Azure (--format azure):
+  color/%06d.jpg         720x1280 JPEG (quality 95) of a Kinect-class
+                         pinhole camera (AZURE_CAM);
+  depth/%06d.png         720x1280 16-bit at 1000 per meter;
+  scene/trajectory.log   blocks of 5 lines: "i i i+1", then the
+                         Y/Z-flipped 4x4 c2w, one row a line.
+
+CoFusion (--format cofusion):
+  colour/Color%04d.png      480x640 8-bit RGB (COFUSION_CAM);
+  depth_noise/Depth%04d.exr float32 'Y' channel holding depth times
+                            png_depth_scale (1000), ZIP-compressed through
+                            the port's write_exr; the loader divides it
+                            out. CoFusion has no poses (identity).
+
+The TUM, ScanNet and Replica writers are the port's counterparts of
+scripts/make_sensor_fixtures.py (TUM, ScanNet) and
+scripts/make_replica_fixture.py and draw the same numbers from the same
+seeds, so the text files are the same and the images come from the same
+renders (the JAX package has no Azure or CoFusion writer). The JPEGs go through the port's writer, which
 writes the bytes libjpeg-turbo writes; the distortion inverts the model by
 OpenCV's iterative undistortPoints scheme and samples the clean image
 bilinearly with edges replicated, as OpenCV 5's remap does; the holes are
@@ -41,6 +57,10 @@ edge can differ by a pixel).
         --out data/ScanNet/scans/scene0000_00 --frames 400
     python -m loopy_slam_torch.tools.make_sensor_fixtures --format replica \\
         --out data/Replica/room0 --frames 2000
+    python -m loopy_slam_torch.tools.make_sensor_fixtures --format azure \\
+        --out data/Apartment --frames 100
+    python -m loopy_slam_torch.tools.make_sensor_fixtures --format cofusion \\
+        --out data/CoFusion/room4 --frames 100
 """
 
 from __future__ import annotations
@@ -53,6 +73,7 @@ import numpy as np
 
 from ..config import DEFAULTS, update_recursive
 from ..utils.datasets import Synthetic, _flip_yz
+from ..utils.exr import write_exr
 from ..utils.imageio import write_jpeg, write_png
 
 TUM_CAM = {"H": 480, "W": 640, "fx": 517.3, "fy": 516.5,
@@ -68,6 +89,14 @@ SCANNET_COLOR_HW = (968, 1296)
 REPLICA_CAM = {"H": 680, "W": 1200, "fx": 600.0, "fy": 600.0,
                "cx": 599.5, "cy": 339.5, "png_depth_scale": 6553.5,
                "crop_edge": 0}
+
+AZURE_CAM = {"H": 720, "W": 1280, "fx": 607.4694, "fy": 607.4535,
+             "cx": 636.9967, "cy": 369.2689, "png_depth_scale": 1000.0,
+             "crop_edge": 0}
+
+COFUSION_CAM = {"H": 480, "W": 640, "fx": 564.3, "fy": 564.3,
+                "cx": 319.5, "cy": 239.5, "png_depth_scale": 1000.0,
+                "crop_edge": 0}
 
 
 def scale_cam(cam, scale: int):
@@ -276,16 +305,52 @@ def write_replica(out, frames, motion_speed, quality=92, scene="v2"):
     return {"frames": frames, "cam": dict(REPLICA_CAM)}
 
 
+def write_azure(out, frames, motion_speed, quality=95):
+    """Returns {"frames", "cam"}."""
+    ds = make_dataset(AZURE_CAM, frames, motion_speed)
+    for sub in ("color", "depth", "scene"):
+        os.makedirs(os.path.join(out, sub), exist_ok=True)
+    scale = AZURE_CAM["png_depth_scale"]
+    for i in range(frames):
+        color, depth = ds.render_frame(ds.poses[i])
+        write_jpeg(os.path.join(out, "color", f"{i:06d}.jpg"),
+                   (color * 255.0).round().astype(np.uint8), quality)
+        write_png(os.path.join(out, "depth", f"{i:06d}.png"),
+                  np.clip(depth * scale, 0, 65535).astype(np.uint16))
+    with open(os.path.join(out, "scene", "trajectory.log"), "w") as f:
+        for i, c2w in enumerate(ds.poses):
+            f.write(f"{i} {i} {i + 1}\n")
+            for row in _flip_yz(c2w):
+                f.write(" ".join(f"{v:.9g}" for v in row) + "\n")
+    return {"frames": frames, "cam": dict(AZURE_CAM)}
+
+
+def write_cofusion(out, frames, motion_speed, compression="ZIP"):
+    """Returns {"frames", "cam"}."""
+    ds = make_dataset(COFUSION_CAM, frames, motion_speed)
+    for sub in ("colour", "depth_noise"):
+        os.makedirs(os.path.join(out, sub), exist_ok=True)
+    scale = np.float32(COFUSION_CAM["png_depth_scale"])
+    for i in range(frames):
+        color, depth = ds.render_frame(ds.poses[i])
+        write_png(os.path.join(out, "colour", f"Color{i:04d}.png"),
+                  (color * 255.0).round().astype(np.uint8))
+        write_exr(os.path.join(out, "depth_noise", f"Depth{i:04d}.exr"),
+                  {"Y": depth.astype(np.float32) * scale}, compression)
+    return {"frames": frames, "cam": dict(COFUSION_CAM)}
+
+
 # per format: the orbit step a frame when --motion-speed is not given (the
 # JAX package's scripts' defaults: a revisit every ~200 frames for TUM and
 # ScanNet, two orbits over Replica's 2000 frames)
 DEFAULT_SPEED = {"tum": 1.0 / 200.0, "scannet": 1.0 / 200.0,
-                 "replica": 1.0 / 1000.0}
+                 "replica": 1.0 / 1000.0, "azure": 1.0 / 200.0,
+                 "cofusion": 1.0 / 200.0}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--format", choices=("tum", "scannet", "replica"),
+    ap.add_argument("--format", choices=tuple(DEFAULT_SPEED),
                     default="tum")
     ap.add_argument("--out", required=True)
     ap.add_argument("--frames", type=int, default=120)
@@ -310,10 +375,16 @@ def main(argv=None):
         info = write_scannet(args.out, args.frames, speed, scale=args.scale)
         print(f"wrote ScanNet fixture: {args.frames} frames to {args.out} "
               f"({len(info['bad_poses'])} invalid poses)")
-    else:
+    elif args.format == "replica":
         write_replica(args.out, args.frames, speed, args.jpeg_quality,
                       args.scene)
         print(f"wrote Replica fixture: {args.frames} frames to {args.out}")
+    elif args.format == "azure":
+        write_azure(args.out, args.frames, speed)
+        print(f"wrote Azure fixture: {args.frames} frames to {args.out}")
+    else:
+        write_cofusion(args.out, args.frames, speed)
+        print(f"wrote CoFusion fixture: {args.frames} frames to {args.out}")
 
 
 if __name__ == "__main__":

@@ -1,18 +1,20 @@
 """RGBD datasets for the port (numpy only, no cv2): the file path of
-`BaseDataset`, the `Replica`, `ScanNet` and `TUM_RGBD` loaders and the
-procedural `Synthetic` room, copied from loopy_slam_tpu/utils/datasets.py.
+`BaseDataset`, the `Replica`, `ScanNet`, `TUM_RGBD`, `Azure` and
+`CoFusion` loaders and the procedural `Synthetic` room, copied from
+loopy_slam_tpu/utils/datasets.py.
 
 `__getitem__` -> (index, color float HxWx3 in [0,1] RGB, depth float HxW in
 meters, gt c2w 4x4 float32), numpy arrays. Files are read by the port's
-own PNG and JPEG readers (utils/imageio.py); color is undistorted (depth
-is not) with the camera's `distortion`, resized to depth's size when it
-differs (ScanNet's 1296x968 color over 640x480 depth), then both are
-cropped by `crop_edge`. Every loader flips the Y and Z columns of c2w
-(OpenGL convention); ScanNet's invalid ground-truth poses stay inf.
-`Synthetic.gt_mesh` is the room's analytic ground-truth mesh for the
-reconstruction metrics. Not ported yet (ROADMAP.md Queue 1 item 11b-iii):
-the Azure and CoFusion loaders, CoFusion's EXR depth and the `crop_size`
-resize; the loader raises for the last two.
+own PNG, JPEG and EXR readers (utils/imageio.py, utils/exr.py); color is
+undistorted (depth is not) with the camera's `distortion`, resized to
+depth's size when it differs (ScanNet's 1296x968 color over 640x480
+depth), then, with `cam.crop_size` [H, W], color goes to that size by
+INTER_LINEAR and depth by INTER_NEAREST (`slam.update_cam` scales the
+intrinsics to match), and both are cropped by `crop_edge`. Every loader
+flips the Y and Z columns of c2w (OpenGL convention); ScanNet's invalid
+ground-truth poses stay inf, and Azure without a trajectory log and
+CoFusion have identity poses. `Synthetic.gt_mesh` is the room's analytic
+ground-truth mesh for the reconstruction metrics.
 """
 
 from __future__ import annotations
@@ -23,19 +25,15 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .exr import read_exr_depth
 from .imageio import (read_jpeg, read_png, remap_linear, resize_linear,
-                      undistort_map)
+                      resize_nearest, undistort_map)
 
 
 def as_intrinsics_matrix(intr) -> np.ndarray:
     K = np.eye(3)
     K[0, 0], K[1, 1], K[0, 2], K[1, 2] = intr
     return K
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to loopy_slam_torch yet "
-                              "(ROADMAP.md Queue 1 item 11)")
 
 
 class BaseDataset:
@@ -67,7 +65,11 @@ class BaseDataset:
                 raise ValueError(f"{path}: depth PNG is not single-channel")
             return d.astype(np.float32) / self.png_depth_scale
         if path.endswith(".exr"):
-            _not_ported("EXR depth (CoFusion)")
+            # CoFusion: the 'Y' channel, scaled like the PNG path
+            d = read_exr_depth(path)
+            if d is None:
+                raise ValueError(f"{path}: EXR has no 'Y' depth channel")
+            return d / self.png_depth_scale
         raise ValueError(f"unsupported depth format: {path}")
 
     def _read_color(self, path: str) -> np.ndarray:
@@ -85,8 +87,6 @@ class BaseDataset:
         return c[..., :3]
 
     def __getitem__(self, index: int):
-        if self.crop_size is not None:
-            _not_ported("cam.crop_size (the color/depth resize)")
         color = self._read_color(self.color_paths[index])
         depth = self._read_depth(self.depth_paths[index])
         if self.distortion is not None:
@@ -103,6 +103,10 @@ class BaseDataset:
         # to depth's size (a copy when the sizes agree), as cv2.resize does
         H, W = depth.shape
         color = resize_linear(color, (W, H))
+        if self.crop_size is not None:
+            ch, cw = self.crop_size
+            color = resize_linear(color, (cw, ch))
+            depth = resize_nearest(depth, (cw, ch))
         e = self.crop_edge
         if e > 0:
             color = color[e:-e, e:-e]
@@ -155,6 +159,44 @@ class ScanNet(BaseDataset):
         for p in sorted(glob.glob(os.path.join(base, "pose", "*.txt")),
                         key=key):
             self.poses.append(_flip_yz(np.loadtxt(p).reshape(4, 4)))
+
+
+class Azure(BaseDataset):
+    """An Azure Kinect folder: color/*.jpg, depth/*.png (16-bit) and
+    scene/trajectory.log, blocks of 5 lines (a header, then the 4x4 c2w);
+    identity poses without the log."""
+
+    def __init__(self, cfg, input_folder=None):
+        super().__init__(cfg, input_folder)
+        self.color_paths = sorted(
+            glob.glob(os.path.join(self.input_folder, "color", "*.jpg")))
+        self.depth_paths = sorted(
+            glob.glob(os.path.join(self.input_folder, "depth", "*.png")))
+        self.n_img = len(self.color_paths)
+        traj = os.path.join(self.input_folder, "scene", "trajectory.log")
+        if os.path.exists(traj):
+            with open(traj) as f:
+                content = f.readlines()
+            for i in range(0, len(content), 5):
+                c2w = np.array(list(map(float, "".join(
+                    content[i + 1:i + 5]).split()))).reshape(4, 4)
+                self.poses.append(_flip_yz(c2w))
+        else:
+            self.poses = [np.eye(4) for _ in range(self.n_img)]
+
+
+class CoFusion(BaseDataset):
+    """A CoFusion folder: colour/*.png and depth_noise/*.exr (depth in the
+    'Y' channel); identity poses."""
+
+    def __init__(self, cfg, input_folder=None):
+        super().__init__(cfg, input_folder)
+        self.color_paths = sorted(
+            glob.glob(os.path.join(self.input_folder, "colour", "*.png")))
+        self.depth_paths = sorted(glob.glob(
+            os.path.join(self.input_folder, "depth_noise", "*.exr")))
+        self.n_img = len(self.color_paths)
+        self.poses = [np.eye(4) for _ in range(self.n_img)]
 
 
 class TUM_RGBD(BaseDataset):
@@ -554,17 +596,15 @@ class Synthetic(BaseDataset):
         return np.concatenate(verts_all), np.concatenate(faces_all)
 
 
-dataset_dict = {"replica": Replica, "scannet": ScanNet, "tumrgbd": TUM_RGBD,
-                "synthetic": Synthetic}
+dataset_dict = {"replica": Replica, "scannet": ScanNet, "cofusion": CoFusion,
+                "azure": Azure, "tumrgbd": TUM_RGBD, "synthetic": Synthetic}
 
 
 def get_dataset(cfg, input_folder: Optional[str] = None) -> BaseDataset:
     name = cfg["dataset"]
     if name not in dataset_dict:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP.md Queue 1 item "
-            "11b-iii); the port runs 'replica', 'scannet', 'tumrgbd' and "
-            "the procedural 'synthetic' scene")
+        raise ValueError(f"unknown dataset {name!r}; the loaders are "
+                         f"{sorted(dataset_dict)}")
     ds = dataset_dict[name](cfg, input_folder)
     if len(ds) == 0:
         raise FileNotFoundError(

@@ -24,6 +24,7 @@ machine has neither).
     `quality`, as libjpeg-turbo's compressor writes it with OpenCV's
     `imwrite` settings.
   * `resize_linear`: `cv2.resize(img, (W, H))` (INTER_LINEAR) on float32.
+  * `resize_nearest`: `cv2.resize(..., INTER_NEAREST)`, bit for bit.
   * `undistort`: `cv2.undistort(img, K, dist)` for uint8 images with
     newCameraMatrix = K, following OpenCV's own arithmetic: the map of
     `initUndistortRectifyMap` (the 5-term radial/tangential model in
@@ -606,3 +607,20 @@ def resize_linear(img: np.ndarray, size) -> np.ndarray:
     out = r0 * (np.float32(1) - yw)[:, None, None] \
         + r1 * yw[:, None, None]
     return out.astype(np.float32).reshape((H2, W2) + img.shape[2:])
+
+
+def resize_nearest(img: np.ndarray, size) -> np.ndarray:
+    """cv2.resize(img, size, interpolation=INTER_NEAREST) for an (H, W) or
+    (H, W, C) image of any dtype; size is (width, height). OpenCV takes
+    source column min(floor(x * ifx), W - 1) with ifx = 1 / (W2 / W) in
+    double precision (rows alike): not INTER_NEAREST_EXACT's half-pixel
+    rule, and float32 arithmetic, or W / W2 itself, misses columns at some
+    non-integer ratios."""
+    img = np.asarray(img)
+    W2, H2 = int(size[0]), int(size[1])
+    H, W = img.shape[:2]
+    ifx = 1.0 / (W2 / W)
+    ify = 1.0 / (H2 / H)
+    xs = np.minimum(np.floor(np.arange(W2) * ifx).astype(np.int64), W - 1)
+    ys = np.minimum(np.floor(np.arange(H2) * ify).astype(np.int64), H - 1)
+    return img[ys[:, None], xs[None, :]]

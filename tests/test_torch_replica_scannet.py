@@ -212,8 +212,12 @@ def test_scannet_loader_layout(tmp_path):
 
 
 def test_get_dataset_names_the_ported_loaders():
-    assert {"replica", "scannet", "tumrgbd", "synthetic"} <= set(
-        tds.dataset_dict)
-    cfg = _cfg("azure", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="azure"):
-        tds.get_dataset(cfg)
+    """Every loader of the JAX package is in; an empty folder and an
+    unknown name raise, naming the dataset."""
+    assert set(tds.dataset_dict) == {"replica", "scannet", "tumrgbd",
+                                     "synthetic", "azure", "cofusion"}
+    for name in ("azure", "cofusion"):
+        with pytest.raises(FileNotFoundError, match=name):
+            tds.get_dataset(_cfg(name, "/nonexistent"))
+    with pytest.raises(ValueError, match="kinect"):
+        tds.get_dataset(_cfg("kinect", "/nonexistent"))

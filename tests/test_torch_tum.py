@@ -275,10 +275,12 @@ def test_fixture_writer_matches_jax_script(sequences):
 
 @pytest.mark.parametrize("case", ["jpeg", "exr", "crop_size", "size"])
 def test_loader_refuses_formats_not_ported(sequences, tmp_path, case):
-    """EXR depth and crop_size raise, naming their ROADMAP item. JPEG color
-    and color of another size than depth are ported: a JPEG the reader
-    does not support (progressive) raises with its name, and color of
-    another size is resized to depth's."""
+    """The loader's formats beyond the sequence's own: a JPEG the reader
+    does not support (progressive) raises with its name; color of another
+    size than depth is resized to depth's; EXR depth (the 'Y' channel)
+    reads as the PNG depth it holds; and cam.crop_size resizes both images
+    as the JAX loader does (depth bit-equal, color within cv2's IPP
+    rounding, 1e-4)."""
     jdir, _, root = sequences
     cfg = _tum_cfg(tload, tupdate, jdir, root)
     ds = tget(cfg)
@@ -297,12 +299,27 @@ def test_loader_refuses_formats_not_ported(sequences, tmp_path, case):
         _, color, depth, _ = ds[0]
         assert color.shape[:2] == depth.shape
         return
+    _, color0, depth0, _ = ds[0]
     if case == "exr":
-        ds.depth_paths = [p[:-4] + ".exr" for p in ds.depth_paths]
-    else:
-        ds.crop_size = [100, 140]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ds[0]
+        from loopy_slam_torch.utils.exr import write_exr
+
+        path = str(tmp_path / "depth.exr")
+        write_exr(path, {"Y": imageio.read_png(ds.depth_paths[0])
+                         .astype(np.float32)})
+        ds.depth_paths = [path] + ds.depth_paths[1:]
+        _, color, depth, _ = ds[0]
+        np.testing.assert_array_equal(depth, depth0)
+        np.testing.assert_array_equal(color, color0)
+        return
+    ds.crop_size = [100, 140]
+    jds = jget(_tum_cfg(jload, jupdate, jdir, root))
+    jds.crop_size = [100, 140]
+    _, color, depth, _ = ds[0]
+    _, jcolor, jdepth, _ = jds[0]
+    e = cfg["cam"]["crop_edge"]
+    assert depth.shape == (100 - 2 * e, 140 - 2 * e)
+    np.testing.assert_array_equal(depth, jdepth)
+    np.testing.assert_allclose(color, jcolor, rtol=0, atol=1e-4)
 
 
 # tum.yaml's features on (dynamic radius, gradient picks for tracking and

@@ -65,8 +65,11 @@ Phases:
      `python -m loopy_slam_torch.run` runs
      configs/TUM_RGBD/freiburg1_desk.yaml as shipped on it (dynamic query
      radius, color-gradient picks, 5000 tracking pixels x 200 iterations,
-     10000 mapping pixels, color refinement, the final evaluation), only
-     the input, the output and both vis_freq (6) changed; prints a `tum:`
+     10000 mapping pixels, the final evaluation), only the input, the
+     output, both vis_freq (6) and color refinement changed (off, for
+     phase 13's time: ~55 s on the H100; ScanNet's path keeps a
+     refinement with the dynamic radius, as do the segmented and CLI
+     paths); prints a `tum:`
      line (frames, crop, the r_query map's median/min/max, the gradient
      pool and inserts, the phase times, ATE, rejects, peak memory,
      launches, the host's PNG decoding and undistortion seconds a frame)
@@ -151,6 +154,34 @@ Phases:
      on phase 6's run directory, gated on PNGs with non-constant pixels
      and an HTML payload that parses and holds the run's point and pose
      counts (its `tools:` line).
+ 13. multi-device, two ranks sharing the card (gloo by the backend rule
+     of parallel/mesh.py, psum and ring hops through CUDA IPC mailboxes):
+     (13a) the mailboxes held bit-equal against gloo on host copies (psum
+     and ring_shift by +1 and -1 of seeded float32 and int32 payloads at
+     the ring fetch's and ray-DP's widths, and one payload larger than a
+     mailbox, so the exchange goes in pieces; its `mailbox:` line), the
+     port's dry run (parallel/dryrun.py: one ray-DP and one
+     map-shard chunk at tiny shapes inside their loss bands) and a
+     one-rank NCCL process group with an all_reduce (NCCL's code path;
+     two ranks on one card cannot use it); (13b) the map-shard session
+     and (13c) the ray-DP session: phase 4's configuration (room.yaml's
+     widths, 6 frames) with parallel.n_devices 2 (and map_shard for
+     13b), each through parallel/mesh.launch and run.session, with the
+     kernel's launch count reset on each rank just before its run; each
+     prints a `multi:` line (ATE, rejects, points, shard counts, each
+     rank's launches, checksum of the replicated state, run seconds and
+     collective seconds, calls and bytes, the collective ms an optimizer
+     iteration, the phase medians beside phase 4's) and gates on ATE <=
+     3 mm, no rejects, launches > 0 on every rank, equal checksums and,
+     for 13b, both shards non-empty and summing to the gathered map; a
+     failed rank ends the script (its traceback in the error, its own
+     output on this process's stdout and stderr). No depth cut
+     (MULTI_OVERRIDES: phase 4's own); phase 13's time came from the TUM
+     path's color refinement. (13d) holds the kernel at one shard's local mapping
+     batch (the mapped frames of 13b's run as a 12-frame window, pixels /
+     window / 2 rays each) and tracking batch (pixels / 2 rays) on that
+     shard's local grid, rebuilt from the run's gathered checkpoint, and
+     at a ray-DP rank's mapping pool on 13c's map.
 
 Prints a JSON line of per-kernel numbers, the script's seconds, then the
 card's name and power limit, then {"ok": true, "device": {...}} as the
@@ -160,6 +191,7 @@ each with their gates, for their run-to-run spread (no kernels line, no
 result line); `--base-runs N` runs only phases 11 and 11b (writing phase
 8's sequence first), N times; `--tools-runs N` runs only phase 12, N
 times (phase 6 first when its run directory has no mesh);
+`--multi-runs N` runs only phase 13 (N times, with 13d once);
 `--debug-index` (a debugging mode, with `--base-runs`) checks every CUDA
 index op's indices on the device until the first mapped frame ends and
 prints the call sites out of range (IndexProbe: it clamps them, so gates
@@ -1108,7 +1140,8 @@ def tum_phase():
     fixture_s = time.perf_counter() - t0
     overlay = dataset_overlay(
         out, os.path.join(HERE, "configs", "TUM_RGBD",
-                          "freiburg1_desk.yaml"), fixture, TUM_VIS_FREQ)
+                          "freiburg1_desk.yaml"), fixture, TUM_VIS_FREQ,
+        mapping={"color_refine": False})
     stats, extra = run_dataset_path(overlay, out)
 
     cfg = load_config(overlay)
@@ -2377,6 +2410,272 @@ def profile_phase(device, n_frames=6, top=15):
     return res
 
 
+# phase 13's sessions: phase 4's configuration on two ranks, widths and
+# depth as phase 4 runs them (1500 x 40 tracking, 5000 mapping pixels over
+# a window of 12, 800 / 300 mapping iterations, capacity 262,144); with
+# the mapping iterations halved the ray-DP session ended 4.90 mm off on an
+# H100 80GB HBM3 at 700 W, over the 3 mm gate, so the script's time came
+# from the TUM path's color refinement instead
+MULTI_OVERRIDES = {
+    "mapping": {"segment_strategy": "none", "color_refine": False,
+                "vis_freq": 0},
+    "tracking": {"vis_freq": 0},
+    "rendering": {"eval_img": False},
+    "meshing": {"eval_rec": False},
+}
+
+
+def nccl_rank(mesh):
+    """One rank of a one-rank NCCL group: an all_reduce on the card."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.arange(4, dtype=torch.float32, device=mesh.device)
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return {"backend": mesh.backend, "sum": t.cpu().tolist()}
+
+
+def mailbox_rank(mesh):
+    """One rank of 13a's mailbox check: psum and ring_shift through the
+    CUDA IPC mailboxes against the same collectives through gloo on host
+    copies, on inputs seeded by rank. Returns each case's bit-equality,
+    largest difference and both routes' ms."""
+    import torch
+    import torch.distributed as dist
+
+    from loopy_slam_torch.parallel.mesh import MAILBOX_BYTES
+
+    if mesh._boxes is None:
+        raise AssertionError(f"rank {mesh.rank}: no mailboxes on a shared "
+                             f"card (backend {mesh.backend})")
+    g = torch.Generator().manual_seed(1300 + mesh.rank)
+    n_big = MAILBOX_BYTES // 4 + (3 << 20) + 17  # two pieces
+    fetch = torch.randn(12480, 8, 67, generator=g)  # a ring fetch hop
+    idx = torch.randint(-2 ** 31, 2 ** 31 - 1, (12480, 8), generator=g,
+                        dtype=torch.int32)
+    grad = torch.randn(1 << 16, 64, generator=g)  # ray-DP's feature grad
+    big = torch.randn(n_big, generator=g)
+    cases = [("psum", [grad, torch.randn(1000, generator=g)], 0),
+             ("psum", [big], 0), ("ring", [fetch, idx], 1),
+             ("ring", [fetch, idx], -1), ("ring", [big], 1)]
+    w = mesh.world
+    out = []
+    for kind, host, shift in cases:
+        dev = [t.to(mesh.device) for t in host]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = (mesh.psum(dev) if kind == "psum"
+               else mesh.ring_shift(dev, shift))
+        torch.cuda.synchronize()
+        box_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = []
+        for t in host:
+            c = t.clone()
+            if kind == "psum":
+                dist.all_reduce(c, op=dist.ReduceOp.SUM)
+            else:
+                split_in, split_out = [0] * w, [0] * w
+                split_in[(mesh.rank + shift) % w] = c.shape[0]
+                split_out[(mesh.rank - shift) % w] = c.shape[0]
+                r = torch.empty_like(c)
+                dist.all_to_all_single(r, c, output_split_sizes=split_out,
+                                       input_split_sizes=split_in)
+                c = r
+            ref.append(c)
+        gloo_ms = (time.perf_counter() - t0) * 1e3
+        equal = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+        err = max(float((a.cpu().double() - b.double()).abs().max())
+                  for a, b in zip(got, ref))
+        out.append({"kind": kind, "shift": shift,
+                    "mb": sum(t.numel() * 4 for t in host) / 1e6,
+                    "bit_equal": equal, "max_abs_err": err,
+                    "mailbox_ms": box_ms, "gloo_host_ms": gloo_ms})
+    return out
+
+
+def multi_phase_dryrun():
+    """13a: the mailboxes against gloo on two ranks, the port's dry run on
+    two ranks, and NCCL's code path on one."""
+    from loopy_slam_torch.parallel import mesh
+    from loopy_slam_torch.parallel.dryrun import dryrun
+
+    print("== phase 13a: the mailboxes against gloo, the multi-device dry "
+          "run (2 ranks) and a 1-rank NCCL all_reduce", flush=True)
+    store = os.path.join(HERE, "output", "chip_smoke_multi")
+    t0 = time.perf_counter()
+    boxes = mesh.launch(mailbox_rank, 2, timeout_s=300.0, store_dir=store)
+    print("mailbox:", json.dumps(boxes), flush=True)
+    bad = [(r, c) for r, res in enumerate(boxes) for c in res
+           if not c["bit_equal"]]
+    if bad:
+        raise AssertionError(f"the mailboxes disagree with gloo: {bad}")
+    rec = dryrun(2, store_dir=store)
+    nccl = mesh.launch(nccl_rank, 1, timeout_s=120.0, store_dir=store)[0]
+    if nccl["backend"] != "nccl" or nccl["sum"] != [0.0, 1.0, 2.0, 3.0]:
+        raise AssertionError(f"the NCCL all_reduce returned {nccl}")
+    print("dryrun:", json.dumps({**rec, "nccl": nccl,
+                                 "phase_s": time.perf_counter() - t0}),
+          flush=True)
+    return rec
+
+
+def multi_session(map_shard: bool, slice_summary):
+    """13b / 13c: phase 4's room session on two ranks; returns its summary
+    (with the per-rank launch counts summed under knn_select_launches)."""
+    import numpy as np
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.parallel import mesh
+
+    name = "map_shard" if map_shard else "ray_dp"
+    print(f"== phase 13{'b' if map_shard else 'c'}: {name} session, "
+          "synthetic room, 6 frames, 2 ranks", flush=True)
+    out = os.path.join(HERE, "output", f"chip_smoke_{name}")
+    cfg = room_config(6, out, MULTI_OVERRIDES)
+    cfg["parallel"] = {"n_devices": 2, "map_shard": map_shard}
+    t0 = time.perf_counter()
+    res = mesh.launch(cli.session, 2, cfg, None, None, timeout_s=600.0,
+                      store_dir=os.path.join(HERE, "output",
+                                             "chip_smoke_multi"))
+    wall = time.perf_counter() - t0
+    ranks = [r.pop("rank") for r in res]
+    st = res[0]
+    coll = {}
+    for r in ranks:
+        for k, v in r["collectives"].items():
+            c = coll.setdefault(k, {"s": 0.0, "calls": 0, "bytes": 0})
+            for f in c:
+                c[f] += v[f]
+    iters = ranks[0]["collectives"].get("psum", {}).get("calls", 0)
+    coll_s = sum(v["s"] for v in ranks[0]["collectives"].values())
+    med = {k: float(np.median(v)) for k, v in st["timings_s"].items() if v}
+    summary = {
+        "path": name, "frames": 6, "ranks": 2,
+        "backend": ranks[0]["backend"], "ate_rmse_m": st["rmse"],
+        "health_rejects": st["health_rejects"], "n_points": st["n_points"],
+        "shard_counts": [r["shard_count"] for r in ranks],
+        "launches_by_rank": [r["knn_select_launches"] for r in ranks],
+        "knn_select_launches": sum(r["knn_select_launches"] for r in ranks),
+        "checksums_equal": len({r["checksum"] for r in ranks}) == 1,
+        "run_s_by_rank": [r["run_s"] for r in ranks], "wall_s": wall,
+        "track_median_s": med.get("track"), "map_median_s": med.get("map"),
+        "track_times_s": st["timings_s"].get("track"),
+        "map_times_s": st["timings_s"].get("map"),
+        "phase4_track_median_s": slice_summary and slice_summary.get(
+            "track_median_s"),
+        "phase4_map_median_s": slice_summary and slice_summary.get(
+            "map_median_s"),
+        "collectives_rank0": ranks[0]["collectives"],
+        "collectives_all_ranks": coll,
+        "optimizer_iters_rank0": iters,
+        "collective_ms_per_iter": (coll_s / iters * 1e3) if iters else None,
+        "card": nvidia_smi_line(),
+    }
+    print("multi:", json.dumps(summary), flush=True)
+    what = f"the {name} session"
+    if not np.isfinite(st["rmse"]) or st["rmse"] > ATE_GATE_M:
+        raise AssertionError(f"{what}: ATE {st['rmse']:.5f} m > "
+                             f"{ATE_GATE_M} m")
+    if st["health_rejects"]:
+        raise AssertionError(f"{what}: {st['health_rejects']} rejects")
+    if min(summary["launches_by_rank"]) <= 0:
+        raise AssertionError(f"{what}: a rank never launched knn_select "
+                             f"({summary['launches_by_rank']})")
+    if not summary["checksums_equal"]:
+        raise AssertionError(f"{what}: the ranks' replicated state differs")
+    if map_shard and (min(summary["shard_counts"]) <= 0 or sum(
+            summary["shard_counts"]) != st["n_points"]):
+        raise AssertionError(f"{what}: shard counts "
+                             f"{summary['shard_counts']} vs the gathered "
+                             f"{st['n_points']}")
+    return summary, cfg
+
+
+def shard_kernel_check(cfg, dp_cfg, device):
+    """13d: the kernel at the shapes phase 13 launches. On one shard's
+    local grid (shard 0's points of the map-shard run's final checkpoint,
+    indexed as the shard indexes them: knn.build at the configured table
+    size and row depth): rank 0's batch of one mapping iteration (pixels /
+    window / 2 rays of each of a 12-frame window: the run's mapped frames,
+    repeated as the mapper pads; N_surface samples each) and of one
+    tracking iteration (tracking pixels / 2 rays of the last frame). On
+    the ray-DP run's whole map (indexed as restore indexes it): a rank's
+    mapping pool (pixel_pool_factor x pixels / window / 2 rays of each
+    window frame). Scalar radius."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch import run as cli
+    from loopy_slam_torch.mapping.point_cloud import MapOptions
+    from loopy_slam_torch.ops import knn
+    from loopy_slam_torch.parallel.map_shard import owner_of_points_np
+    from loopy_slam_torch.slam import update_cam
+    from loopy_slam_torch.utils.datasets import get_dataset
+    from loopy_slam_torch.utils.io import load_checkpoint
+
+    print("== phase 13d: knn_select at a shard's local mapping batch",
+          flush=True)
+    ck = load_checkpoint(cli.latest_checkpoint(cfg["data"]["output"]))
+    mopts = MapOptions.from_cfg(cfg)
+    pos_np = np.asarray(ck["map"]["pos"], np.float32)
+    mine = pos_np[owner_of_points_np(pos_np, mopts.cell_size, 2) == 0]
+    cap = 2048
+    while cap < len(mine) + 1024:
+        cap *= 2
+    pos = torch.zeros((cap, 3), device=device)
+    pos[:len(mine)] = torch.as_tensor(mine, device=device)
+    grid = knn.build(pos, torch.arange(cap, device=device) < len(mine),
+                     mopts.cell_size, mopts.table_size, mopts.max_per_cell)
+    ds = get_dataset(cfg)
+    m, pc = cfg["mapping"], cfg["pointcloud"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    window = m["mapping_window_size"]
+    mapped = list(range(len(ds) - 1, -1, -m["every_frame"]))
+    frames = [mapped[i % len(mapped)] for i in range(window)]
+    per_frame = max(m["pixels"] // window, 1) // 2
+    cam = update_cam(cfg)
+    views = [frame_view(cfg, ck, ds, device, i) for i in frames]
+    k, r = pc["nn_num"], pc["radius_query"]
+    M, T = grid.cell_data.shape[1], grid.cell_data.shape[0] - 1
+    q, _ = radius_pool_queries(views, per_frame, cam, cfg["rendering"], gen)
+    out = [check_shape(f"shard_map_batch Q={q.shape[0]} F={len(frames)} "
+                       f"points={len(mine)} M={M} T={T}", grid, q, k, r)]
+    q, _ = radius_pool_queries(
+        [frame_view(cfg, ck, ds, device, len(ds) - 1)],
+        cfg["tracking"]["pixels"] // 2, cam, cfg["rendering"], gen)
+    out.append(check_shape(f"shard_track_batch Q={q.shape[0]} points="
+                           f"{len(mine)} M={M} T={T}", grid, q, k, r))
+    dck = load_checkpoint(cli.latest_checkpoint(dp_cfg["data"]["output"]))
+    dgrid = checkpoint_grid(dp_cfg, dck, device)
+    q, _ = radius_pool_queries(
+        [frame_view(dp_cfg, dck, ds, device, i) for i in frames],
+        m.get("pixel_pool_factor", 8) * per_frame, cam, cfg["rendering"],
+        gen)
+    out.append(check_shape(
+        f"ray_dp_rank_pool Q={q.shape[0]} F={len(frames)} "
+        f"M={dgrid.cell_data.shape[1]} T={dgrid.cell_data.shape[0] - 1}",
+        dgrid, q, k, r))
+    return out
+
+
+def multi_phase(device, slice_summary):
+    """Phase 13: returns (map-shard summary, ray-DP summary, 13d's shape
+    results)."""
+    import torch
+
+    t0 = time.perf_counter()
+    multi_phase_dryrun()
+    shard, shard_cfg = multi_session(True, slice_summary)
+    torch.cuda.empty_cache()
+    dp, dp_cfg = multi_session(False, slice_summary)
+    shapes = shard_kernel_check(shard_cfg, dp_cfg, device)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+    return shard, dp, shapes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=6,
@@ -2395,6 +2694,9 @@ def main(argv=None) -> int:
                     help="run only phase 12 (the last inputs and the "
                          "tools), this many times (prints no result; "
                          "runs phase 6 first for 12d's run directory)")
+    ap.add_argument("--multi-runs", type=int, default=0,
+                    help="run only phase 13 (the multi-device path), this "
+                         "many times (prints no result)")
     ap.add_argument("--debug-index", action="store_true",
                     help="check every CUDA index op's indices on the "
                          "device until the first mapped frame ends, and "
@@ -2441,6 +2743,11 @@ def main(argv=None) -> int:
             base_kernel_check(base_cfg, device)
         print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.multi_runs:
+        for _ in range(args.multi_runs):
+            multi_phase(device, None)
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+        return 0
     cli_dir = os.path.join(HERE, "output", "chip_smoke_cli")
     if args.tools_runs:
         if not os.path.exists(os.path.join(cli_dir, "mesh",
@@ -2477,6 +2784,9 @@ def main(argv=None) -> int:
     pre_summary, azure_summary, shapes, _ = inputs_tools_phase(device,
                                                                cli_dir)
     shape_results += shapes
+    torch.cuda.empty_cache()
+    shard_summary, dp_summary, shard_shapes = multi_phase(device, summary)
+    shape_results += shard_shapes
     if args.profile:
         profile_phase(device)
 
@@ -2488,7 +2798,8 @@ def main(argv=None) -> int:
         ("cli", cli_summary), ("tum", tum_summary),
         ("replica", replica_summary), ("scannet", scannet_summary),
         ("base", base_summary), ("pretrain", pre_summary),
-        ("azure", azure_summary))}
+        ("azure", azure_summary), ("map_shard", shard_summary),
+        ("ray_dp", dp_summary))}
     entry = {
         "name": "knn_select", "route": "cuda",
         "source": "loopy_slam_torch/csrc/knn_select.cu",

@@ -224,10 +224,10 @@ def _loss_terms(d, c, inside, valid_ray, depth, color, stage,
 
 def _map_loss(dec, feats, map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq,
               draw, stage, opts: MapperOptions, ropts: RenderOptions,
-              pix_per_frame: int, exposure=None):
+              pix_per_frame: int, exposure=None, eval_fn=None):
     """One mapping iteration's loss over pix_per_frame fresh rays from each
     of the F window frames (last = current frame); exposure: see
-    _exposed (with encode_exposure)."""
+    _exposed (with encode_exposure); eval_fn: see render_batch_ray."""
     ro, rd, d, c, valid, rq = _window_rays(draw, kf_color, kf_depth, kf_c2w,
                                            kf_rq, opts, pix_per_frame)
     ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
@@ -237,7 +237,7 @@ def _map_loss(dec, feats, map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq,
     inside = valid & (d <= torch.minimum(10.0 * med, 1.2 * mx))
     depth, _var, color, valid_ray = render_batch_ray(
         dec, map_pos, grid, feats, ro, rd, d, inside, draw, ropts, stage,
-        r_query=None if rq is None else rq.reshape(-1))
+        r_query=None if rq is None else rq.reshape(-1), eval_fn=eval_fn)
     return _loss_terms(d, c, inside, valid_ray, depth, color, stage, opts,
                        dec, exposure, kf_color.shape[0])
 
@@ -334,7 +334,8 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
                        ropts: RenderOptions, pix_per_frame: int,
                        kf_rq=None, kf_exposure=None, exp=None, cams=None,
                        ba_row_mask=None, ba_lr: float = 0.0,
-                       ba_window=None, iter_offset: int = 0):
+                       ba_window=None, iter_offset: int = 0, mesh=None,
+                       eval_fn_builder=None, feat_grad_local: bool = False):
     """Run a chunk of the geometry -> color mapping optimization.
 
     dec: Decoders (updated in place); feat: (cap, 2c) packed features;
@@ -357,6 +358,15 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
     compares them); outside it the row's lr is 0 and its moments still
     move. With cams no ray pool is built: the poses move.
 
+    Multi-device (parallel/): with a mesh (parallel/mesh.Mesh), every
+    rank samples its own pix_per_frame rays a frame from its own `draw`,
+    and the gradients and loss terms are summed over the ranks every
+    iteration, so every rank applies the same update. eval_fn_builder(dec,
+    feats) -> eval_fn replaces the sample decode (render_batch_ray's
+    eval_fn; no ray pool then), and feat_grad_local leaves the feature
+    gradient out of the sum (a sharded map: each rank's ring-fetch
+    backward already holds its own rows' gradient).
+
     Returns (feat, adam_state, (geo_loss, col_loss, n_rays)), then exp'
     with exposure, then cams' with cams.
     """
@@ -377,7 +387,7 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
     if adam_state is None:
         adam_state = adam.init(params + [feat] + extra)
     use_pool = (opts.pixel_pool_factor > 0 and not ropts.sample_near_pcl
-                and cams is None)
+                and cams is None and eval_fn_builder is None)
     pool = None
     if use_pool:
         pool = _build_pool(map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq,
@@ -403,12 +413,18 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
                                            exposure)
             else:
                 c2w = kf_c2w if cams is None else c2w_from_tensor(exp_v[-1])
+                eval_fn = (None if eval_fn_builder is None
+                           else eval_fn_builder(dec, feat_v))
                 loss, aux = _map_loss(dec, feat_v, map_pos, grid, kf_color,
                                       kf_depth, c2w, kf_rq, draw, stage,
-                                      opts, ropts, pix_per_frame, exposure)
+                                      opts, ropts, pix_per_frame, exposure,
+                                      eval_fn)
             grads = torch.autograd.grad(loss, params + [feat_v] + exp_v,
                                         allow_unused=True)
             n = len(params)
+            if mesh is not None:
+                grads, aux = _psum_grads(mesh, grads, params + [feat_v]
+                                         + exp_v, n, feat_grad_local, aux)
             grads = [g if (on and g is not None) else None
                      for g, on in zip(grads[:n], dec_on)] \
                 + [grads[n] * fm if grads[n] is not None else None] \
@@ -431,6 +447,21 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
 
 
 optimize_map = _optimize_map_impl
+
+
+def _psum_grads(mesh, grads, leaves, n_dec: int, feat_grad_local: bool,
+                aux):
+    """Sum the gradients (a missing one as zeros, so every rank sends the
+    same layout) and the loss terms over the mesh in one all_reduce; the
+    feature gradient (leaf n_dec) stays local with feat_grad_local."""
+    grads = [torch.zeros_like(v) if g is None else g
+             for g, v in zip(grads, leaves)]
+    idx = [i for i in range(len(grads))
+           if not (feat_grad_local and i == n_dec)]
+    summed = mesh.psum([grads[i] for i in idx] + list(aux))
+    for j, i in enumerate(idx):
+        grads[i] = summed[j]
+    return grads, tuple(summed[len(idx):])
 
 
 def stage_chunks(n_geo: int, n_col: int, chunk: int):

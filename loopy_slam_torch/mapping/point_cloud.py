@@ -209,6 +209,25 @@ def add_points(state: MapState, opts: MapOptions, draw,
                     in_pos=in_pos, in_rgb=in_rgb, in_count=in_count), n_loc
 
 
+def input_cloud_insert(state: MapState, opts: MapOptions, rays_o, rays_d,
+                       gt_depth, gt_color, gate) -> MapState:
+    """Append one sensor-space point per gated candidate to the input
+    cloud (add_points' in_pos/in_rgb update, for the map-sharded path,
+    where the neural points live on the shards and the input cloud is
+    replicated)."""
+    pts_gt = rays_o + rays_d * gt_depth[:, None]
+    rank = torch.cumsum(gate.to(torch.int32), 0).to(torch.int32) - 1
+    in_rank = state.in_count + rank
+    in_dest = torch.where(gate & (in_rank < opts.input_capacity), in_rank,
+                          opts.input_capacity)
+    n_loc = torch.sum(gate).to(torch.int32)
+    return state._replace(
+        in_pos=scatter_drop(state.in_pos, in_dest, pts_gt),
+        in_rgb=scatter_drop(state.in_rgb, in_dest, gt_color),
+        in_count=torch.clamp(state.in_count + n_loc,
+                             max=opts.input_capacity))
+
+
 PROBE_INTERVALS = 25
 
 
@@ -245,7 +264,8 @@ def probe_points(rays_o, rays_d, near, far):
 
 @torch.no_grad()
 def sample_near_pcl_z_vals_raw(pos, grid, rays_o, rays_d, near, far,
-                               num: int, radius_query, nn_num: int):
+                               num: int, radius_query, nn_num: int,
+                               occupied_fn=None):
     """z-vals for zero-depth rays, where the point cloud lies: probe 25
     depths in [near, far] on each ray, call a probe occupied when the
     k-NN finds a neighbour within the scalar radius_query, and place
@@ -253,12 +273,18 @@ def sample_near_pcl_z_vals_raw(pos, grid, rays_o, rays_d, near, far,
     than two occupied probes falls back to [near, far] and is flagged
     invalid. far may be a device scalar. Returns (z_vals (R, num),
     invalid (R,)). One k-NN over R * 25 probe points (one kernel launch
-    on the card); only its in-radius counts are read."""
+    on the card); only its in-radius counts are read. occupied_fn(pts) ->
+    bool (N,) replaces that local probe (the map-sharded path's ring probe
+    over every shard, parallel/map_shard.py)."""
     R = rays_o.shape[0]
     dev = rays_o.device
     pts, z_probe = probe_points(rays_o, rays_d, near, far)
-    _, _, nn_count = knn.query_chunked(grid, pos, pts, nn_num, radius_query)
-    occupied = (nn_count > 0).reshape(R, PROBE_INTERVALS)
+    if occupied_fn is None:
+        _, _, nn_count = knn.query_chunked(grid, pos, pts, nn_num,
+                                           radius_query)
+        occupied = (nn_count > 0).reshape(R, PROBE_INTERVALS)
+    else:
+        occupied = occupied_fn(pts).reshape(R, PROBE_INTERVALS)
     invalid = torch.sum(occupied, dim=-1) < 2
     # argmax of an integer row returns the first maximum, as jnp.argmax
     first = torch.argmax(occupied.to(torch.int32), dim=-1)

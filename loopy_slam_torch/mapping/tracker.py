@@ -139,11 +139,11 @@ def _pick_pixels(draw, n, gt_color, gt_depth, sel_i, sel_j,
 
 def tracking_loss(cam7, dec, map_pos, grid, feats, gt_color, gt_depth, draw,
                   opts: TrackOptions, ropts: RenderOptions, sel_i=None,
-                  sel_j=None, r_query=None, exposure=None):
+                  sel_j=None, r_query=None, exposure=None, eval_fn=None):
     """Sample pixels (from the pool sel_i/sel_j if given), render at pose
     cam7 with the (H, W) query-radius map r_query if given, compute the
     tracking loss. exposure: (latent, ExposureMLP) with encode_exposure,
-    else None."""
+    else None; eval_fn: see render_batch_ray."""
     c2w = c2w_from_tensor(cam7)
     i, j, d, c, valid = _pick_pixels(draw, opts.pixels, gt_color, gt_depth,
                                      sel_i, sel_j, opts)
@@ -154,7 +154,8 @@ def tracking_loss(cam7, dec, map_pos, grid, feats, gt_color, gt_depth, draw,
     ef, mlp = exposure if exposure is not None else (None, None)
     depth, var, color, _ = render_batch_ray(
         dec, map_pos, grid, feats, rays_o, rays_d, d, inside, draw, ropts,
-        "color", r_query=rq, exposure_feat=ef, exposure_mlp=mlp)
+        "color", r_query=rq, exposure_feat=ef, exposure_mlp=mlp,
+        eval_fn=eval_fn)
     return _loss_from_render(d, c, inside, depth, var, color, opts)
 
 
@@ -288,14 +289,20 @@ class TrackResult(NamedTuple):
 def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
                       cam7_init, draw, opts: TrackOptions,
                       ropts: RenderOptions, health=None, sel_i=None,
-                      sel_j=None, r_query=None, exposure_feat=None
-                      ) -> TrackResult:
+                      sel_j=None, r_query=None, exposure_feat=None,
+                      mesh=None, eval_fn_builder=None) -> TrackResult:
     """Optimize the camera pose (and with ropts.encode_exposure the
     exposure latent, from exposure_feat or zeros, and the exposure MLP,
     from dec.col.exposure) for one frame. sel_i/sel_j: a pool of
     pre-selected pixels (cols, rows; the color-gradient picks) to draw
     from instead of the whole frame; r_query: the frame's (H, W) query
-    radius map (the dynamic radius)."""
+    radius map (the dynamic radius).
+
+    Multi-device (parallel/): with a mesh, every rank renders its own
+    opts.pixels rays from its own `draw`, and the loss, its mask count and
+    the gradients are summed over the ranks every iteration, so every rank
+    takes the same step; eval_fn_builder(dec, feats) -> eval_fn replaces
+    the sample decode (the map-sharded ring k-NN; no k-NN cache then)."""
     dev = cam7_init.device
     lr_cam = _lr_vector(opts, dev)
     cam = cam7_init.detach().clone()
@@ -312,8 +319,11 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
     best_cam = cam7_init.detach().clone()
     best_nm = torch.zeros((), device=dev)
     first_loss = torch.zeros((), device=dev)
-    use_cache = opts.knn_refresh > 0 and not ropts.sample_near_pcl
+    use_cache = (opts.knn_refresh > 0 and not ropts.sample_near_pcl
+                 and eval_fn_builder is None)
     feats = feats.detach()
+    eval_fn = (None if eval_fn_builder is None
+               else eval_fn_builder(dec, feats))
 
     def step(loss_fn):
         nonlocal cam, extra, st, best_loss, best_cam, best_nm
@@ -322,6 +332,10 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
         loss, aux = loss_fn(vs[0], exposure)
         grads = torch.autograd.grad(loss, vs)
         loss = loss.detach()
+        if mesh is not None:
+            *grads, loss, n_mask = mesh.psum(
+                list(grads) + [loss, aux[2].float()])
+            aux = (aux[0], aux[1], n_mask)
         new, st = adam.update([v.detach() for v in vs], grads, st, lrs)
         cam, extra = new[0], new[1:]
         better = loss < best_loss
@@ -347,7 +361,7 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
         for _ in range(opts.iters):
             loss = step(lambda c7, ex: tracking_loss(
                 c7, dec, map_pos, grid, feats, gt_color, gt_depth, draw,
-                opts, ropts, sel_i, sel_j, r_query, ex))
+                opts, ropts, sel_i, sel_j, r_query, ex, eval_fn))
             if n_done == 0:
                 first_loss = loss
             n_done += 1
@@ -358,7 +372,8 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
     else:
         out_cam, health_out = _apply_health_gate(
             health, best_loss, best_nm, cam7_init, best_cam, opts,
-            total_px=float(opts.pixels))
+            total_px=float(opts.pixels
+                           * (1 if mesh is None else mesh.size())))
     with torch.no_grad():
         best_c2w44 = c2w_to_4x4(c2w_from_tensor(out_cam))
     return TrackResult(out_cam, best_c2w44, first_loss, best_loss,

@@ -196,7 +196,8 @@ def soft_clamp_logits(x):
 
 def render_batch_ray(dec, map_pos, grid, feats, rays_o, rays_d, gt_depth,
                      ray_valid, draw, opts: RenderOptions, stage: str,
-                     r_query=None, exposure_feat=None, exposure_mlp=None):
+                     r_query=None, exposure_feat=None, exposure_mlp=None,
+                     eval_fn=None):
     """Render a fixed-size batch of rays. `r_query` is a per-ray (R,)
     query radius (the dynamic radius), repeated once per sample, or None
     for opts.radius_query; exposure_feat/exposure_mlp: the exposure
@@ -205,8 +206,11 @@ def render_batch_ray(dec, map_pos, grid, feats, rays_o, rays_d, gt_depth,
     point cloud lies (mapping/point_cloud.sample_near_pcl_z_vals_raw, at
     the scalar radius_query, on detached rays) and a ray whose probe found
     fewer than two is invalid; their depths are kept. Without it,
-    zero-depth rays render depth 0. Returns (depth, depth_var, color,
-    valid_ray_mask), each (R, ...)."""
+    zero-depth rays render depth 0. eval_fn(pts, draw, stage, views_d, rq,
+    exposure_feat, exposure_mlp) replaces the sample decode (the
+    map-sharded ring k-NN, parallel/map_shard.py); its attribute
+    `probe_occupied`, if any, replaces the probe's local k-NN. Returns
+    (depth, depth_var, color, valid_ray_mask), each (R, ...)."""
     R = rays_o.shape[0]
     S = opts.n_surface
     z_vals = surface_z_vals(gt_depth, ray_valid, S, opts.near_end_surface,
@@ -220,7 +224,8 @@ def render_batch_ray(dec, map_pos, grid, feats, rays_o, rays_d, gt_depth,
                           min=1.0)
         z_near, invalid = sample_near_pcl_z_vals_raw(
             map_pos, grid, rays_o.detach(), rays_d.detach(), opts.near_end,
-            far, S, opts.radius_query, opts.nn_num)
+            far, S, opts.radius_query, opts.nn_num,
+            occupied_fn=getattr(eval_fn, "probe_occupied", None))
         has_depth = gt_depth > 0
         z_vals = torch.where(has_depth[:, None], z_vals, z_near)
         mask_rays_near_pcl = has_depth | ~invalid
@@ -231,9 +236,14 @@ def render_batch_ray(dec, map_pos, grid, feats, rays_o, rays_d, gt_depth,
     rq = None
     if r_query is not None:
         rq = torch.repeat_interleave(r_query.reshape(-1), S, dim=0)
-    occ, rgb, has_neighbors = eval_points(
-        dec, map_pos, grid, feats, pts, draw, opts, stage, views_d=views_d,
-        r_query=rq, exposure_feat=exposure_feat, exposure_mlp=exposure_mlp)
+    if eval_fn is None:
+        occ, rgb, has_neighbors = eval_points(
+            dec, map_pos, grid, feats, pts, draw, opts, stage,
+            views_d=views_d, r_query=rq, exposure_feat=exposure_feat,
+            exposure_mlp=exposure_mlp)
+    else:
+        occ, rgb, has_neighbors = eval_fn(pts, draw, stage, views_d, rq,
+                                          exposure_feat, exposure_mlp)
     valid_ray = torch.sum(has_neighbors.reshape(R, S), dim=-1) >= (S // 2 + 1)
     if mask_rays_near_pcl is not None:
         valid_ray = valid_ray & mask_rays_near_pcl

@@ -12,12 +12,20 @@ a .pkl path, or bare for the newest one in <output>/ckpts. The YAML files
 are read by the port's own reader (no PyYAML needed). `--wandb` and
 `--no_wandb` set the config's `wandb` (the losses go to wandb when it is
 set and wandb imports); without either the YAML's value stands.
+
+With parallel.n_devices = n > 1 (ray data parallelism, or with
+parallel.map_shard the cell-sharded map) the session runs on n spawned
+ranks (parallel/mesh.launch, rank r on cuda:(r % cards), or all on the CPU
+with --device cpu; the rendezvous and each rank's result live in a
+temporary directory under <output>/.mesh, removed afterwards). Rank 0
+prints, evaluates and writes the outputs; a failed rank fails the run.
 """
 
 import argparse
 import glob
 import os
 import random
+import time
 
 
 def latest_checkpoint(output: str) -> str:
@@ -31,6 +39,88 @@ def latest_checkpoint(output: str) -> str:
     return cands[-1]
 
 
+def session(mesh, cfg, device=None, resume=None):
+    """One session of the CLI on this rank (mesh None: the only one): run,
+    score the trajectory and, on rank 0 of a finished run, the final
+    evaluation. Returns main()'s statistics; on a mesh also `rank`: this
+    rank's checksum of the replicated state (LoopySLAM.
+    replicated_checksum), k-NN kernel launches during the run, shard
+    count and collective times."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch.ops import knn
+    from loopy_slam_torch.slam import LoopySLAM
+    from loopy_slam_torch.tools.eval_ate import evaluate_trajectories
+
+    random.seed(cfg["setup_seed"])
+    np.random.seed(cfg["setup_seed"])
+    torch.manual_seed(cfg["setup_seed"])
+    slam = LoopySLAM(cfg, output=cfg["data"]["output"], device=device,
+                     mesh=mesh)
+    try:
+        start_idx, resumed = 0, None
+        if resume:
+            path = (latest_checkpoint(slam.output) if resume == "auto"
+                    else resume)
+            start_idx = slam.restore(path)
+            resumed = {"checkpoint": path, "start_idx": start_idx,
+                       "points": int(slam.map_state.count)}
+        knn.KNN_SELECT_LAUNCHES.reset()
+        if mesh is not None:
+            mesh.reset_stats()
+        t0 = time.perf_counter()
+        result = slam.run(stop=cfg.get("stop", 0), start_idx=start_idx)
+        run_s = time.perf_counter() - t0
+        launches = knn.KNN_SELECT_LAUNCHES.count
+        stats = evaluate_trajectories(result["estimate_c2w"],
+                                      result["gt_c2w"])
+        if slam.rank == 0:
+            print("ATE RMSE (aligned, m):", stats["rmse"])
+            print("ATE RMSE (no-align, m):", stats["rmse_no_align"])
+        # the session's own numbers, beside the metrics
+        stats.update(n_points=result["n_points"],
+                     health_rejects=int(slam.track_health[1].item()),
+                     segments=len(slam.fm.fragments),
+                     correction_rounds=len(slam.lc.rounds),
+                     timings_s=dict(slam.timings),
+                     grad_stats=dict(slam.grad_stats),
+                     ba_frames=list(slam.ba_frames))
+        if mesh is not None:
+            stats["rank"] = {
+                "rank": mesh.rank, "backend": mesh.backend,
+                "checksum": slam.replicated_checksum(), "run_s": run_s,
+                "knn_select_launches": launches,
+                "shard_count": (int(slam._smap.count) if slam.map_sharded
+                                else None),
+                "collectives": {k: {"s": v[0], "calls": int(v[1]),
+                                    "bytes": int(v[2])}
+                                for k, v in mesh.stats.items()}}
+        if resumed is not None:
+            stats["resume"] = resumed
+        if slam.rank == 0 and not cfg.get("stop") and (
+                cfg["rendering"]["eval_img"] or cfg["meshing"]["eval_rec"]):
+            # an evaluation error must not lose the run: finalize() already
+            # wrote the final checkpoint
+            try:
+                eval_stats = slam.final_eval()
+                print("final eval:", eval_stats)
+                stats.update(eval_stats)
+                stats["eval_timings_s"] = slam.eval_timings
+            except Exception as e:  # noqa: BLE001 - reported, not hidden
+                import traceback
+
+                traceback.print_exc()
+                print("evaluation failed; the run is kept: its final "
+                      f"checkpoint is in {slam.output}/ckpts (rerun the "
+                      "evaluation with loopy_slam_torch.tools.eval_ate / "
+                      "get_mesh_tsdf_fusion)")
+                stats["eval_error"] = f"{type(e).__name__}: {e}"
+    finally:
+        slam.close()
+    return stats
+
+
 def main(argv=None):
     """Run the CLI. Returns the ATE statistics with the final evaluation's
     metrics merged in (or, if the evaluation failed, its error under
@@ -40,12 +130,9 @@ def main(argv=None):
     counts (`grad_stats`), the mapped frames that ran bundle adjustment
     (`ba_frames`) and, on a resumed run, `resume`
     (the checkpoint, the first frame run and the restored map's points)."""
-    import numpy as np
-    import torch
-
     from loopy_slam_torch.config import load_config
-    from loopy_slam_torch.slam import LoopySLAM
-    from loopy_slam_torch.tools.eval_ate import evaluate_trajectories
+    from loopy_slam_torch.parallel.mesh import launch
+    from loopy_slam_torch.slam import parallel_ranks
 
     parser = argparse.ArgumentParser(description="loopy_slam_torch runner")
     parser.add_argument("config", type=str, help="path to scene config yaml")
@@ -78,54 +165,15 @@ def main(argv=None):
         cfg["mapping"]["keyframe_every"] = min(
             cfg["mapping"]["keyframe_every"], args.stop)
 
-    random.seed(cfg["setup_seed"])
-    np.random.seed(cfg["setup_seed"])
-    torch.manual_seed(cfg["setup_seed"])
-
-    slam = LoopySLAM(cfg, output=cfg["data"]["output"], device=args.device)
-    try:
-        start_idx, resumed = 0, None
-        if args.resume:
-            path = (latest_checkpoint(slam.output) if args.resume == "auto"
-                    else args.resume)
-            start_idx = slam.restore(path)
-            resumed = {"checkpoint": path, "start_idx": start_idx,
-                       "points": int(slam.map_state.count)}
-        result = slam.run(stop=cfg.get("stop", 0), start_idx=start_idx)
-        stats = evaluate_trajectories(result["estimate_c2w"],
-                                      result["gt_c2w"])
-        print("ATE RMSE (aligned, m):", stats["rmse"])
-        print("ATE RMSE (no-align, m):", stats["rmse_no_align"])
-        # the session's own numbers, beside the metrics
-        stats.update(n_points=result["n_points"],
-                     health_rejects=int(slam.track_health[1].item()),
-                     segments=len(slam.fm.fragments),
-                     correction_rounds=len(slam.lc.rounds),
-                     timings_s=dict(slam.timings),
-                     grad_stats=dict(slam.grad_stats),
-                     ba_frames=list(slam.ba_frames))
-        if resumed is not None:
-            stats["resume"] = resumed
-        if not cfg.get("stop") and (cfg["rendering"]["eval_img"]
-                                    or cfg["meshing"]["eval_rec"]):
-            # an evaluation error must not lose the run: finalize() already
-            # wrote the final checkpoint
-            try:
-                eval_stats = slam.final_eval()
-                print("final eval:", eval_stats)
-                stats.update(eval_stats)
-                stats["eval_timings_s"] = slam.eval_timings
-            except Exception as e:  # noqa: BLE001 - reported, not hidden
-                import traceback
-
-                traceback.print_exc()
-                print("evaluation failed; the run is kept: its final "
-                      f"checkpoint is in {slam.output}/ckpts (rerun the "
-                      "evaluation with loopy_slam_torch.tools.eval_ate / "
-                      "get_mesh_tsdf_fusion)")
-                stats["eval_error"] = f"{type(e).__name__}: {e}"
-    finally:
-        slam.close()
+    n = parallel_ranks(cfg)
+    if n == 1:
+        return session(None, cfg, args.device, args.resume)
+    # every rank runs the session; rank 0's statistics, with each rank's
+    # own summary under "ranks"
+    results = launch(session, n, cfg, args.device, args.resume,
+                     device=args.device, store_dir=os.path.join(cfg["data"]["output"], ".mesh"))
+    stats = results[0]
+    stats["ranks"] = [r.pop("rank") for r in results]
     return stats
 
 

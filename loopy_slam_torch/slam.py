@@ -48,6 +48,32 @@ the run (utils/visualizer.py).
 With wandb set, the tracking and mapping losses go to wandb when it is
 installed (utils/telemetry.py; a no-op otherwise).
 
+Multi-device (parallel.*, one process per rank over torch.distributed,
+started by parallel/mesh.launch; `mesh` is this rank's handle). With
+parallel.n_devices = n > 1 every rank runs this host loop:
+  * ray data parallelism (map_shard off, parallel/sharded.py): the map,
+    decoders and Adam state are replicated; rank 0 tracks and broadcasts
+    the pose (and its draw stream's state, so the replicated stream stays
+    in step); every rank inserts the same points and maps with its own
+    pixels / n rays a frame, gradients summed every iteration;
+  * map sharding (map_shard on, parallel/map_shard.py): each rank holds
+    the cells it owns; tracking, insertion, growth (by the largest shard,
+    a pmax), the frustum mask, mapping and the PGO move run on the shards
+    with ring k-NN; self.map_state is a gathered snapshot of every shard
+    (with the replicated input cloud) for rendering, checkpoints, segment
+    close and the global merge, refreshed on demand; carry-over, the
+    merged map and a restore scatter host points to their owners.
+Each rank has two draw streams: the replicated one (`draw`, setup_seed)
+for every replicated decision, and its own (`rank_draw`) for the pixels
+it samples. Host-only work runs on rank 0 and what the session needs of
+it is broadcast: the loop-closure correction (TSDF cloud, registration,
+pose graph), the visual odometer's motion model and the ray-DP tracked
+pose; rank 0 alone writes outputs (checkpoints, visualizer, wandb) and
+the caller evaluates on rank 0. There is no silent single-device path:
+n_devices > 1 without a mesh of that size raises. Map sharding with
+n_devices <= 1 is one shard, which is the plain path (as in the JAX
+package on one device).
+
 A config that asks for a feature outside the port raises
 NotImplementedError naming its ROADMAP.md item instead of silently running
 something else.
@@ -69,10 +95,13 @@ from .mapping import mapper as mapper_mod
 from .mapping import tracker as tracker_mod
 from .mapping.fragments import FragmentManager
 from .mapping.loop_closure import LoopCloser, LoopClosureConfig
-from .mapping.point_cloud import MapOptions, MapState, init_map, valid_mask
+from .mapping.point_cloud import (MapOptions, MapState, init_map,
+                                  input_cloud_insert, valid_mask)
 from .models.decoder import init_decoders, trainable_mask
 from .models.renderer import RenderOptions, render_batch_ray
 from .ops import knn, tsdf
+from .parallel import map_shard as msh
+from .parallel.sharded import sharded_optimize_map
 from .ops.orb import extract_orb
 from .ops.camera import get_rays, np_c2w_from_tensor, tensor_from_c2w
 from .ops.image import dynamic_radius_maps, select_pixels_by_grad
@@ -111,20 +140,24 @@ def update_cam(cfg) -> Dict[str, float]:
 
 
 def check_slice(cfg) -> None:
-    """Raise NotImplementedError for any configured feature the port does
-    not have yet, naming its ROADMAP.md item: multi-device (item 13).
-    Every tracking, mapping and rendering option of the JAX package is in,
-    the visual odometer, bundle adjustment, sample_near_pcl and the wandb
-    shim among them."""
+    """Raise for a configuration the port cannot run. Every option of the
+    JAX package is in (multi-device, ROADMAP.md item 13, the last); map
+    sharding needs a power-of-two rank count."""
     seg = cfg["mapping"]["segment_strategy"]
     if seg not in ("rot_trans", "fixed", "none"):
         raise ValueError(f"mapping.segment_strategy={seg!r} is not one of "
                          "'rot_trans', 'fixed' or 'none'")
     par = cfg.get("parallel", {})
-    if int(par.get("n_devices", 0)) > 1 or par.get("map_shard", False):
-        raise NotImplementedError(
-            "parallel.* (multi-device) is not ported to loopy_slam_torch "
-            "yet (ROADMAP.md Queue 1 item 13)")
+    n = int(par.get("n_devices", 0) or 0)
+    if par.get("map_shard", False) and n > 1 and n & (n - 1):
+        raise ValueError(f"parallel.map_shard needs a power-of-two "
+                         f"n_devices, got {n}")
+
+
+def parallel_ranks(cfg) -> int:
+    """How many ranks a config runs on: parallel.n_devices when above 1,
+    else 1 (map sharding on one device is one shard: the plain path)."""
+    return max(int(cfg.get("parallel", {}).get("n_devices", 0) or 0), 1)
 
 
 def _upload_frame(color_np, depth_np, device):
@@ -143,14 +176,32 @@ def _upload_frame(color_np, depth_np, device):
 
 class LoopySLAM:
     def __init__(self, cfg: Dict, output: Optional[str] = None,
-                 device=None, init_params=None):
+                 device=None, init_params=None, mesh=None):
         """cfg: a loaded config. device: None for the CUDA card (raises
         without one), or e.g. "cpu". init_params: optional decoder pytree
         of numpy arrays (JAX layout) to start from instead of a random
-        init; the pretrained geometry trunk still loads over it."""
-        self.device = resolve_device(device)
+        init; the pretrained geometry trunk still loads over it. mesh: this
+        rank's parallel/mesh.Mesh when parallel.n_devices > 1 (its device
+        is the session's)."""
+        n_ranks = parallel_ranks(cfg)
+        if n_ranks > 1 and (mesh is None or mesh.size() != n_ranks):
+            raise RuntimeError(
+                f"parallel.n_devices = {n_ranks} runs one process per rank: "
+                "start the session on every rank through "
+                "loopy_slam_torch.parallel.mesh.launch with a mesh of that "
+                "size (python -m loopy_slam_torch.run does)")
+        if n_ranks == 1 and mesh is not None and mesh.size() > 1:
+            raise ValueError(f"a mesh of {mesh.size()} ranks needs "
+                             f"parallel.n_devices = {mesh.size()}")
+        self.mesh = mesh if n_ranks > 1 else None
+        self.rank = self.mesh.rank if self.mesh is not None else 0
+        self.map_sharded = n_ranks > 1 and bool(
+            cfg.get("parallel", {}).get("map_shard", False))
+        self.ray_dp = n_ranks > 1 and not self.map_sharded
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.cfg = cfg
-        self.verbose = cfg["verbose"]
+        self.verbose = cfg["verbose"] and self.rank == 0
         self.output = output or cfg["data"]["output"]
 
         cam = update_cam(cfg)
@@ -162,8 +213,9 @@ class LoopySLAM:
         self.n_img = len(self.dataset)
         check_slice(cfg)
 
-        os.makedirs(os.path.join(self.output, "ckpts"), exist_ok=True)
-        self._take_run_lock()
+        if self.rank == 0:  # rank 0 writes every output
+            os.makedirs(os.path.join(self.output, "ckpts"), exist_ok=True)
+            self._take_run_lock()
 
         self.topts = tracker_mod.TrackOptions.from_cfg(cfg)._replace(
             H=self.H, W=self.W, fx=self.fx, fy=self.fy, cx=self.cx, cy=self.cy)
@@ -177,6 +229,9 @@ class LoopySLAM:
 
         seed = cfg["setup_seed"]
         self.draw = TorchDraws(seed, self.device)
+        # this rank's own stream, for the pixels it samples on a mesh
+        self.rank_draw = (self.draw if self.mesh is None else TorchDraws(
+            seed * 1000003 + self.rank + 1, self.device))
         self.nprng = np.random.default_rng(seed)
 
         bf16 = cfg["model"].get("bf16_trunks", True)
@@ -202,6 +257,20 @@ class LoopySLAM:
                                          self.mopts_map.capacity),
             device=self.device)
         self._count_host = 0  # host shadow of map_state.count
+        # map sharding: this rank's shard; map_state is then a snapshot of
+        # every shard, stale while _smap_dirty
+        self._smap = None
+        self._smap_dirty = False
+        if self.map_sharded:
+            cap_l = max(min(self.initial_capacity, self.mopts_map.capacity)
+                        // self.mesh.size(), 2048)
+            self._smap = msh.init_sharded_map(cap_l, self.mopts_map,
+                                              self.device)
+            if self.verbose:
+                print(f"map cell-sharded over {self.mesh.size()} ranks "
+                      f"({cap_l} rows a shard)")
+        elif self.ray_dp and self.verbose:
+            print(f"mapping data-parallel over {self.mesh.size()} ranks")
 
         self.estimate_c2w = np.zeros((self.n_img, 4, 4), np.float32)
         self.gt_c2w = np.zeros((self.n_img, 4, 4), np.float32)
@@ -248,7 +317,9 @@ class LoopySLAM:
         # on the device; the mapped frames that ran bundle adjustment
         self._prev_frame = None
         self.ba_frames: List[int] = []
-        self.wandb = WandbLogger(cfg, name=os.path.basename(self.output))
+        self.wandb = WandbLogger(cfg if self.rank == 0
+                                 else {**cfg, "wandb": False},
+                                 name=os.path.basename(self.output))
 
         # submaps + loop closure
         self.fm = FragmentManager(
@@ -273,12 +344,12 @@ class LoopySLAM:
         # frames with idx > 0 and idx % vis_freq == 0
         self.tracking_vis = self.mapping_vis = None
         tv = int(cfg["tracking"].get("vis_freq", 0) or 0)
-        if tv > 0:
+        if tv > 0 and self.rank == 0:
             self.tracking_vis = Visualizer(
                 tv, os.path.join(self.output, "tracking_vis"), self,
                 verbose=self.verbose)
         mv = int(cfg["mapping"].get("vis_freq", 0) or 0)
-        if mv > 0:
+        if mv > 0 and self.rank == 0:
             self.mapping_vis = Visualizer(
                 mv, os.path.join(self.output, "mapping_vis"), self,
                 verbose=self.verbose)
@@ -413,6 +484,8 @@ class LoopySLAM:
             T = rgbd_odometry(pc, pd, color, depth,
                               (self.fx, self.fy, self.cx, self.cy))
             init_c2w = pre @ np.linalg.inv(T.cpu().numpy())
+            if self.mesh is not None:  # one motion model for every rank
+                init_c2w = self.mesh.broadcast_from_rank0(init_c2w)
             self.timings.setdefault("odometry", []).append(
                 time.perf_counter() - t0)
         else:
@@ -427,12 +500,20 @@ class LoopySLAM:
                 sel_i, sel_j = flat_t % self.W, flat_t // self.W
 
         s = self.map_state
-        res = tracker_mod.track_frame(
-            self.dec, s.pos, s.grid, s.feat, color, depth, cam7, self.draw,
-            self.topts, self.ropts_tracker, health=self.track_health,
-            sel_i=sel_i, sel_j=sel_j, r_query=self.cur_r_query,
-            exposure_feat=(self.exposure_feat if self.encode_exposure
-                           else None))
+        kw = dict(health=self.track_health, sel_i=sel_i, sel_j=sel_j,
+                  r_query=self.cur_r_query,
+                  exposure_feat=(self.exposure_feat if self.encode_exposure
+                                 else None))
+        if self.map_sharded:
+            res = msh.map_shard_track(
+                self.mesh, self.dec, self._smap, color, depth, cam7,
+                self.rank_draw, self.topts, self.ropts_tracker, **kw)
+        elif self.ray_dp:
+            res = self._track_on_rank0(color, depth, cam7, kw)
+        else:
+            res = tracker_mod.track_frame(
+                self.dec, s.pos, s.grid, s.feat, color, depth, cam7,
+                self.draw, self.topts, self.ropts_tracker, **kw)
         first_loss, best_loss = res.first_loss, res.best_loss
         self.track_health = res.health
         if self.encode_exposure:
@@ -456,11 +537,110 @@ class LoopySLAM:
                             "tracking_loss": float(best_loss)})
         return res.c2w44.cpu().numpy()
 
+    def _track_on_rank0(self, color, depth, cam7, kw):
+        """Ray-DP tracking: rank 0 tracks on its copy of the map and
+        broadcasts the result with its replicated stream's state (the other
+        ranks skip the tracker and take both)."""
+        res = None
+        if self.rank == 0:
+            s = self.map_state
+            res = tracker_mod.track_frame(
+                self.dec, s.pos, s.grid, s.feat, color, depth, cam7,
+                self.draw, self.topts, self.ropts_tracker, **kw)
+        payload = self.mesh.broadcast_from_rank0(
+            None if res is None else (_to_device(res, "cpu"),
+                                      self.draw.gen.get_state()))
+        if res is None:
+            res = _to_device(payload[0], self.device)
+            self.draw.gen.set_state(payload[1])
+        return res
+
+    # ------------------------------------------------------------------
+    # Map sharding: the shards are the map; map_state is their snapshot
+    # ------------------------------------------------------------------
+    def _sync_eval_state(self):
+        """Refresh map_state's pos/feat/count/grid from every shard (a
+        collective: every rank calls it at the same point). No-op when in
+        step or not sharded."""
+        if not self.map_sharded or not self._smap_dirty:
+            return
+        pos, feat, _ = msh.gather_host(self._smap, self.mesh)
+        n = pos.shape[0]
+        cap = int(2 ** np.ceil(np.log2(max(n + 1024, 2048))))
+        state = self._device_map(pos, feat, cap)
+        self.map_state = self.map_state._replace(
+            pos=state.pos, feat=state.feat, count=state.count,
+            grid=state.grid)
+        self._count_host = n
+        self._smap_dirty = False
+
+    def _scatter_to_shards(self, pos_np, feat_np, slack: int = 24000):
+        """Replace the shards with host points (segment carry-over, the
+        merged map, restore), at a per-shard capacity with room for hash
+        imbalance and growth."""
+        n_sh = self.mesh.size()
+        counts = (np.bincount(msh.owner_of_points_np(
+            pos_np, self.mopts_map.cell_size, n_sh), minlength=n_sh)
+            if len(pos_np) else np.zeros(n_sh, int))
+        need = int(counts.max()) + max(slack // n_sh, 2048)
+        cap_l = int(2 ** np.ceil(np.log2(max(need, 2048))))
+        self._smap = msh.scatter_from_host(self.mesh, pos_np, feat_np, cap_l,
+                                           self.mopts_map, self.device)
+
+    def _insert_candidates_sharded(self, color, depth, cur_t, prev_t,
+                                   n_rays, overlap=None, flat_idx=None):
+        """Sharded insertion of n_rays sampled pixels (or the given
+        color-gradient picks, gated at radius_min): the replicated
+        candidates, the global gate, each point to its owner, and the
+        gated locations into the replicated input cloud. Returns the
+        number of locations (a device scalar)."""
+        if flat_idx is None:
+            rays_o, rays_d, d, c, valid, dra = \
+                mapper_mod.sample_insert_candidates(
+                    self.draw, color, depth, cur_t, prev_t, self.mopts,
+                    n_rays, overlap, self.cur_r_add)
+            r_default = self.mopts_map.radius_add
+        else:
+            rays_o, rays_d, d, c, valid, dra = \
+                mapper_mod.pixel_insert_candidates(
+                    flat_idx, color, depth, cur_t, self.mopts,
+                    self.cur_r_add)
+            r_default = self.mopts_map.radius_min
+        r_add = (dra if dra is not None else torch.full(
+            (rays_o.shape[0],), r_default, device=self.device))
+        self._smap, n_loc, gate = msh.shard_add_candidates(
+            self._smap, self.mesh, self.mopts_map, rays_o, rays_d, d,
+            self.draw, valid, r_add)
+        self._smap_dirty = True
+        self.map_state = input_cloud_insert(self.map_state, self.mopts_map,
+                                            rays_o, rays_d, d, c, gate)
+        return n_loc
+
     # ------------------------------------------------------------------
     def _maybe_grow_capacity(self, headroom: int = 6000):
         """Double the point buffers when the next insertion could overflow;
         the index is rebuilt adaptively (row depth / table size escalate
-        until nothing drops)."""
+        until nothing drops). Sharded: every shard doubles alike when the
+        largest could overflow (a pmax), up to twice an even split of
+        pointcloud.capacity."""
+        if self.map_sharded:
+            n_sh = self.mesh.size()
+            cap_l = self._smap.pos.shape[0]
+            maxcap_l = max(2 * self.mopts_map.capacity // n_sh, 2048)
+            mx = int(self.mesh.pmax(self._smap.count.reshape(1)).item())
+            need = mx + max(headroom // n_sh * 2, 3000)
+            if need <= cap_l or cap_l >= maxcap_l:
+                return
+            new_cap_l = cap_l
+            while need > new_cap_l and new_cap_l < maxcap_l:
+                new_cap_l *= 2
+            new_cap_l = min(new_cap_l, maxcap_l)
+            self._smap = msh.grow_sharded(self._smap, new_cap_l,
+                                          self.mopts_map)
+            if self.verbose:
+                print(f"grew sharded point buffer {cap_l} -> {new_cap_l} "
+                      "rows a shard")
+            return
         s = self.map_state
         cap = s.pos.shape[0]
         maxcap = self.mopts_map.capacity
@@ -488,6 +668,7 @@ class LoopySLAM:
     # ------------------------------------------------------------------
     def _host_map(self):
         """(pos, feat) of the active map's valid rows, as numpy."""
+        self._sync_eval_state()
         s = self.map_state
         cnt = int(s.count)
         return (s.pos[:cnt].cpu().numpy(),
@@ -538,6 +719,9 @@ class LoopySLAM:
                 npc[carry], feat_host[carry],
                 min(cap0, self.mopts_map.capacity))
             self._count_host = n_carry
+            if self.map_sharded:  # the shards restart from the carry-over
+                self._scatter_to_shards(npc[carry], feat_host[carry])
+                self._smap_dirty = False
             self.keyframe_list = []  # local keyframes restart per segment
             if self.verbose:
                 print(f"new segment at frame {idx} "
@@ -599,22 +783,27 @@ class LoopySLAM:
         current frame, or None."""
         frags = self.fm.fragments
         old, new = frags[-2], frags[-1]
-        old.reg_points, old.reg_colors = self._tsdf_registration_cloud(
-            old.start_idx, new.start_idx)
-        frame_des = []
-        for i in range(old.start_idx + 1, new.start_idx):
-            c, _ = self._segment_frame(i)
-            t0 = time.perf_counter()
-            frame_des.append(extract_orb(c, self.device))
-            self.seg_timings["orb_frame"].append(time.perf_counter() - t0)
-        self.lc.compute_baseline(old.anchor_des, frame_des)
+        if self.rank == 0:  # host work: rank 0 decides, the others follow
+            old.reg_points, old.reg_colors = self._tsdf_registration_cloud(
+                old.start_idx, new.start_idx)
+            frame_des = []
+            for i in range(old.start_idx + 1, new.start_idx):
+                c, _ = self._segment_frame(i)
+                t0 = time.perf_counter()
+                frame_des.append(extract_orb(c, self.device))
+                self.seg_timings["orb_frame"].append(
+                    time.perf_counter() - t0)
+            self.lc.compute_baseline(old.anchor_des, frame_des)
         # the closed segment's cached frames served their purpose
         for i in list(self._seg_frames):
             if i < new.start_idx:
                 del self._seg_frames[i]
         if len(frags) <= 3:
             return None
-        corrections = self.lc.compute_correction()
+        corrections = (self.lc.compute_correction() if self.rank == 0
+                       else None)
+        if self.mesh is not None:
+            corrections = self.mesh.broadcast_from_rank0(corrections)
         if corrections is None:
             return None
         if self.verbose:
@@ -622,9 +811,11 @@ class LoopySLAM:
                   f"{len(frags)} segments")
         # trajectory snapshots around the pose-graph correction
         seg_i = len(frags) - 1
-        save_checkpoint(
-            os.path.join(self.output, "ckpts", f"{seg_i:05d}_before_pgo.pkl"),
-            {"estimate_c2w_list": self.estimate_c2w.copy()})
+        if self.rank == 0:
+            save_checkpoint(
+                os.path.join(self.output, "ckpts",
+                             f"{seg_i:05d}_before_pgo.pkl"),
+                {"estimate_c2w_list": self.estimate_c2w.copy()})
         for i, f in enumerate(frags):
             N = corrections[i]
             last = i == len(frags) - 1
@@ -643,15 +834,22 @@ class LoopySLAM:
         # adaptively (two cells re-binned into one row can overflow it)
         N = torch.as_tensor(corrections[-1], dtype=torch.float32,
                             device=self.device)
-        s = self.map_state
-        pos = s.pos @ N[:3, :3].T + N[:3, 3]
-        grid = knn.build_adaptive(pos, valid_mask(s), self.mopts_map.cell_size,
-                                  self.mopts_map.table_size,
-                                  self.mopts_map.max_per_cell)
-        self.map_state = s._replace(pos=pos, grid=grid)
-        save_checkpoint(
-            os.path.join(self.output, "ckpts", f"{seg_i:05d}_after_pgo.pkl"),
-            {"estimate_c2w_list": self.estimate_c2w.copy()})
+        if self.map_sharded:
+            self._smap = msh.shard_transform(self._smap, N, self.mopts_map)
+            self._smap_dirty = True
+        else:
+            s = self.map_state
+            pos = s.pos @ N[:3, :3].T + N[:3, 3]
+            grid = knn.build_adaptive(pos, valid_mask(s),
+                                      self.mopts_map.cell_size,
+                                      self.mopts_map.table_size,
+                                      self.mopts_map.max_per_cell)
+            self.map_state = s._replace(pos=pos, grid=grid)
+        if self.rank == 0:
+            save_checkpoint(
+                os.path.join(self.output, "ckpts",
+                             f"{seg_i:05d}_after_pgo.pkl"),
+                {"estimate_c2w_list": self.estimate_c2w.copy()})
         return self.estimate_c2w[frags[-1].start_idx].copy()
 
     def _build_end_state(self):
@@ -769,7 +967,14 @@ class LoopySLAM:
                 device=self.device)
             add = mapper_mod.add_points_from_frame
             dra = self.cur_r_add
-            if m["filter_before_add_points"] and not init:
+            ins = self._insert_candidates_sharded
+            if self.map_sharded and m["filter_before_add_points"] \
+                    and not init:
+                n_add = (ins(color, depth, cur_t, prev_t, add_n, False)
+                         + ins(color, depth, cur_t, prev_t, 1000, True))
+            elif self.map_sharded:
+                n_add = ins(color, depth, cur_t, prev_t, add_n)
+            elif m["filter_before_add_points"] and not init:
                 self.map_state, n1 = add(self.map_state, color, depth, cur_t,
                                          prev_t, self.draw, self.mopts_map,
                                          self.mopts, add_n, overlap=False,
@@ -788,7 +993,10 @@ class LoopySLAM:
             n_grad = torch.zeros_like(n_add)
             use_grad = m["pixels_based_on_color_grad"] > 0
             flat = self._grad_insert_pixels(color_np) if use_grad else None
-            if flat is not None:
+            if flat is not None and self.map_sharded:
+                n_grad = ins(color, depth, cur_t, None, 0, flat_idx=torch.
+                             as_tensor(flat, device=self.device))
+            elif flat is not None:
                 self.map_state, n_grad = mapper_mod.add_points_at_pixels(
                     self.map_state, color, depth, cur_t,
                     torch.as_tensor(flat, device=self.device), self.draw,
@@ -811,7 +1019,14 @@ class LoopySLAM:
                 cur_c2w = corrected
 
         # ---------------- frustum feature selection ----------------
-        if m["frustum_feature_selection"] and not color_refine:
+        if self.map_sharded:
+            feat_mask = (mapper_mod.frustum_feature_mask(
+                self._smap.pos, self._smap.count,
+                torch.as_tensor(cur_c2w, device=self.device), depth,
+                self.mopts)
+                if m["frustum_feature_selection"] and not color_refine
+                else self._shard_valid())
+        elif m["frustum_feature_selection"] and not color_refine:
             feat_mask = mapper_mod.frustum_feature_mask(
                 self.map_state.pos, self.map_state.count,
                 torch.as_tensor(cur_c2w, device=self.device), depth,
@@ -825,6 +1040,10 @@ class LoopySLAM:
             # anchor frame and the current frame
             self._build_end_state()
             feat_mask = valid_mask(self.map_state)
+            if self.map_sharded:  # the merged map trains on the shards
+                npc, feat_host = self._host_map()
+                self._scatter_to_shards(npc, feat_host)
+                feat_mask = self._shard_valid()
             frags = self.fm.fragments
             up = lambda a: torch.as_tensor(  # noqa: E731
                 np.stack(a).astype(np.float32), device=self.device)
@@ -927,7 +1146,8 @@ class LoopySLAM:
         # (mapper.start_color_stage; the BA poses go on), and each outer
         # round of color refinement restarts Adam (its step count included)
         chunk = int(m.get("device_chunk_iters", 64))
-        feat = self.map_state.feat
+        feat = (self._smap.feat if self.map_sharded
+                else self.map_state.feat)
         aux = None
         for _ in range(5 if color_refine else 1):
             st = None
@@ -937,11 +1157,9 @@ class LoopySLAM:
                     st = mapper_mod.start_color_stage(
                         st, self.dec, feat.shape[1] // 2,
                         with_cams=ba is not None)
-                out = mapper_mod.optimize_map(
-                    self.dec, feat, st, dec_mask, feat_mask,
-                    self.map_state.pos, self.map_state.grid, kc, kd, kp,
-                    self.draw, g, c, lrs_geo, lrs_col, self.mopts,
-                    self.ropts_mapper, pix_per_frame, kf_rq=krq,
+                out = self._optimize(
+                    feat, st, dec_mask, feat_mask, kc, kd, kp, g, c,
+                    lrs_geo, lrs_col, pix_per_frame, kf_rq=krq,
                     kf_exposure=kf_exp, exp=exp,
                     **({} if ba is None else {**ba, "iter_offset": done}))
                 feat, st, aux = out[:3]
@@ -950,7 +1168,11 @@ class LoopySLAM:
                 if ba is not None:
                     ba["cams"] = out[-1]
                 done += g + c
-        self.map_state = self.map_state._replace(feat=feat)
+        if self.map_sharded:
+            self._smap = self._smap._replace(feat=feat)
+            self._smap_dirty = True
+        else:
+            self.map_state = self.map_state._replace(feat=feat)
         if ba is not None:
             # the trained poses back into the trajectory: each keyframe's
             # estimate (its first row) and the current frame's
@@ -968,7 +1190,7 @@ class LoopySLAM:
                     self.kf_est_c2w[i] = c2w4
         if self.encode_exposure:
             self.exposure_feat = exp
-            if not color_refine:
+            if not color_refine and self.rank == 0:
                 # the latent and the color decoder this frame was mapped
                 # with, for final_eval's renders
                 self.mapped_exposure[idx] = exp.cpu().numpy()
@@ -977,9 +1199,9 @@ class LoopySLAM:
                 save_checkpoint(os.path.join(cd_dir, f"{idx:05d}.pkl"),
                                 decoders_to_numpy(self.dec)["col"])
         if (self.verbose or self.wandb.enabled) and aux is not None:
+            grid = (self._smap if self.map_sharded else self.map_state).grid
             g_, c_, n_, drop = torch.stack(
-                list(aux) + [self.map_state.grid.n_dropped.float()]
-            ).cpu().tolist()
+                list(aux) + [grid.n_dropped.float()]).cpu().tolist()
             if self.verbose:
                 print(f"idx: {idx}, geo_loss_pixel: {g_ / max(n_, 1):.6f}, "
                       f"color_loss_pixel: {c_ / max(n_, 1):.4f}, "
@@ -1004,6 +1226,31 @@ class LoopySLAM:
             self.keyframe_global_list.append(idx)
         self.prev_mapped_idx = idx
 
+    def _shard_valid(self):
+        return (torch.arange(self._smap.pos.shape[0], device=self.device)
+                < self._smap.count)
+
+    def _optimize(self, feat, st, dec_mask, feat_mask, kc, kd, kp, n_geo,
+                  n_col, lrs_geo, lrs_col, pix_per_frame, **kw):
+        """One optimize_map chunk on this session's map: the plain one, or
+        on a mesh with this rank's own draws (ray-DP over the replicated
+        map, or over the shards)."""
+        args = (kc, kd, kp)
+        tail = (n_geo, n_col, lrs_geo, lrs_col, self.mopts,
+                self.ropts_mapper, pix_per_frame)
+        if self.map_sharded:
+            return msh.map_shard_optimize(
+                self.mesh, self.dec, feat, st, dec_mask, feat_mask,
+                self._smap, *args, self.rank_draw, *tail, **kw)
+        s = self.map_state
+        if self.ray_dp:
+            return sharded_optimize_map(
+                self.mesh, self.dec, feat, st, dec_mask, feat_mask, s.pos,
+                s.grid, *args, self.rank_draw, *tail, **kw)
+        return mapper_mod.optimize_map(
+            self.dec, feat, st, dec_mask, feat_mask, s.pos, s.grid, *args,
+            self.draw, *tail, **kw)
+
     # ------------------------------------------------------------------
     # Full-frame rendering (evaluation and visualization)
     # ------------------------------------------------------------------
@@ -1026,6 +1273,9 @@ class LoopySLAM:
         the JAX package pads it. 4096, the JAX package's chunk, keeps the
         noise draws of each chunk the same shape as JAX's, so a render with
         JAX's draws replayed matches JAX's render."""
+        if self._smap_dirty:
+            raise RuntimeError("the map snapshot is stale: every rank calls "
+                               "_sync_eval_state() before a render")
         dev = self.device
         rays_o, rays_d = get_rays(self.H, self.W, self.fx, self.fy, self.cx,
                                   self.cy, torch.as_tensor(
@@ -1084,7 +1334,9 @@ class LoopySLAM:
         which no torch generator can continue: the session then keeps its
         own generator, seeded from setup_seed. The exposure state (the
         current latent, each keyframe's and each mapped frame's) comes back
-        as it was written."""
+        as it was written. On a mesh every rank restores the same
+        checkpoint (map sharding scatters its points to their owners) and
+        each rank's own pixel stream starts again from its seed."""
         ckpt = load_checkpoint(ckpt_path)
         last_idx = int(ckpt["idx"])
         dev = self.device
@@ -1135,6 +1387,10 @@ class LoopySLAM:
             pos=pos, feat=feat, count=torch.tensor(count, **i32), grid=grid,
             in_pos=in_pos, in_rgb=in_rgb, in_count=torch.tensor(n_in, **i32))
         self._count_host = count
+        if self.map_sharded:
+            self._scatter_to_shards(pos[:count].cpu().numpy(),
+                                    feat[:count].cpu().numpy())
+            self._smap_dirty = False
 
         # ---- trajectories and keyframe metadata
         n = min(last_idx + 1, self.n_img)
@@ -1208,7 +1464,12 @@ class LoopySLAM:
 
     # ------------------------------------------------------------------
     def _vis(self, which: str, idx, iters, depth_np, color_np):
-        """Residual panels of frame idx at its estimated pose, timed."""
+        """Residual panels of frame idx at its estimated pose, timed (on
+        rank 0, from the snapshot every rank refreshes first)."""
+        freq = int(self.cfg[which].get("vis_freq", 0) or 0)
+        if freq <= 0 or idx == 0 or idx % freq:
+            return
+        self._sync_eval_state()
         vis = getattr(self, f"{which}_vis")
         if vis is None:
             return
@@ -1365,6 +1626,31 @@ class LoopySLAM:
         }
 
     # ------------------------------------------------------------------
+    def replicated_checksum(self) -> str:
+        """sha256 of the state every rank of a mesh must hold alike: the
+        decoders, the trajectory, the keyframe lists and poses, the health
+        gate and, unless the map is sharded, the map (a single-device
+        session has it too)."""
+        import hashlib
+
+        h = hashlib.sha256()
+        for name, p in self.dec.named_parameters():
+            h.update(name.encode())
+            h.update(p.detach().cpu().numpy().tobytes())
+        h.update(self.estimate_c2w.tobytes())
+        h.update(repr((self.keyframe_list, self.keyframe_global_list,
+                       sorted(self.kf_slot_of_idx.items()))).encode())
+        for i in sorted(self.kf_est_c2w):
+            h.update(np.asarray(self.kf_est_c2w[i], np.float32).tobytes())
+        h.update(self.track_health.cpu().numpy().tobytes())
+        if not self.map_sharded:
+            s = self.map_state
+            n = int(s.count)
+            h.update(s.pos[:n].cpu().numpy().tobytes())
+            h.update(s.feat[:n].detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    # ------------------------------------------------------------------
     def final_eval(self, every: Optional[int] = None, save_renders=True,
                    gt_mesh=None, n_2d_views=100) -> Dict:
         """End-of-run evaluation: render every `every`-th frame at its
@@ -1465,7 +1751,11 @@ class LoopySLAM:
     # ------------------------------------------------------------------
     def finalize(self, last_idx, final: bool = True):
         """Write the input point cloud (final only) and a checkpoint with
-        the JAX package's keys, as numpy."""
+        the JAX package's keys, as numpy (rank 0; every rank refreshes the
+        map snapshot first)."""
+        self._sync_eval_state()
+        if self.rank != 0:
+            return
         s = self.map_state
         n_in = int(s.in_count)
         n = int(s.count)
@@ -1516,6 +1806,17 @@ class LoopySLAM:
                                      f"{last_idx:05d}.pkl"), ckpt)
         if final:
             self.wandb.finish()
+
+
+def _to_device(tree, device):
+    """The tensors of a nest of (named) tuples moved to `device`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_to_device(v, device) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
 
 
 def _flatten(tree, prefix=""):

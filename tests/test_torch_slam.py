@@ -126,7 +126,7 @@ def _slice_cfg(**over):
 
 
 # ROADMAP.md Queue 1 items the port has: their settings pass check_slice
-PORTED_ITEMS = {10, 11, 14, 15, 16, 17, 18, 19}
+PORTED_ITEMS = {10, 11, 13, 14, 15, 16, 17, 18, 19}
 
 
 @pytest.mark.parametrize("over,item", [
@@ -134,6 +134,7 @@ PORTED_ITEMS = {10, 11, 14, 15, 16, 17, 18, 19}
     ({"mapping": {"color_refine": True}}, 10),
     ({"tracking": {"visual_odometer": True}}, 11),
     ({"parallel": {"n_devices": 4}}, 13),
+    ({"parallel": {"n_devices": 2, "map_shard": True}}, 13),
     ({"tracking": {"vis_freq": 5}}, 14),
     ({"use_dynamic_radius": True}, 15),
     ({"tracking": {"sample_with_color_grad": True}}, 15),
@@ -144,9 +145,10 @@ PORTED_ITEMS = {10, 11, 14, 15, 16, 17, 18, 19}
     ({"wandb": True}, 19),
 ])
 def test_features_outside_the_slice_raise(over, item):
-    """A feature of a ROADMAP item not yet ported (multi-device: item 13)
-    raises, naming the item; the settings of ported items (submaps, loop
+    """A feature of a ROADMAP item not yet ported raises, naming the item
+    (none is left); the settings of ported items (submaps, loop
     closure and color refinement: item 10; the visual odometer: item 11;
+    multi-device, ray-DP and map sharding: item 13;
     the visualizer: item 14; the dynamic radius and the color-gradient
     picks: item 15; exposure compensation: item 16; bundle adjustment:
     item 17; sample_near_pcl: item 18; the wandb shim: item 19) pass."""

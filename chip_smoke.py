@@ -24,7 +24,19 @@ Phases:
      script with the TUM, Replica and ScanNet paths stays near 1000 s on
      the card), with the kernels' launch counts reset just
      before, and gates on launches > 0, ATE (aligned) <= 3 mm and no
-     health-gate rejects;
+     health-gate rejects; then checks that utils/cost.CostCounter sees
+     autograd's backward on the card (a Linear's forward and backward
+     read 3x its forward product) and prints the path's `roofline:` line
+     (roofline_report: LoopySLAM.roofline()'s flops, transcendentals and
+     bytes of the last tracked frame and the last full mapping chunk, the
+     k-NN's share of the bytes, the median steady times of a tracked frame
+     (the second on) and of a mapped frame (the second on), achieved
+     TFLOP/s and TB/s and their shares of the card's f32 and HBM peaks,
+     the map's per chunk scaled by mapping.iters / chunk_iters as the JAX
+     package's bench.py does, and the accounting's own seconds), gated on
+     flops and bytes > 0, every share in (0, 1.05] (more than the peak
+     means a wrong count) and the trajectory, the map's features and the
+     launch count unchanged by the accounting;
   5. runs the segmented path: room.yaml as shipped (segment_strategy
      rot_trans, color_refine on, visualizer off) with
      mapping.segment_rel_trans 0.05, tracking.kval 3 and
@@ -75,7 +87,9 @@ Phases:
      launches, the host's PNG decoding and undistortion seconds a frame)
      and gates on >= 10 associated frames, ATE < 2 cm, no rejects,
      gradient inserts > 0, a mesh with faces, no evaluation error and
-     launches > 0; then (8b) holds the kernel against its plain version,
+     launches > 0, with the path's `roofline:` line and gates as in phase 4
+     (through run.main's after_run); then (8b) holds the kernel against
+     its plain version,
      with per-query radii, at the tracking pool and a mapping pool over
      that path's final map;
   9. runs the Replica path: the fixture writer puts a 6-frame
@@ -519,24 +533,14 @@ def pool_queries(views, frames, per_frame, cfg, draw):
 
 
 def knn_bound(grid, queries, k, per_query_radius=False):
-    """Least time for the k-NN function on these inputs, the larger of two.
-    Bytes over HBM bandwidth: the fill count and the filled slots of each
-    row the queries touch, read once (empty slots hold the 1e9 sentinel and
-    change no output), the queries, their radii (per_query_radius) and
-    cell_size read, D/I/neighbor_num written. f32 operations over the f32
-    peak: 8 per filled candidate in each query's stencil (3 sub, 3 mul, 2
-    add)."""
-    import torch
-
+    """Least time for the k-NN function on these inputs, the larger of two:
+    ops/knn.query_cost's bytes (the filled slots of the rows the queries
+    touch, their fill counts, the queries, radii and cell_size read,
+    D/I/neighbor_num written) over HBM bandwidth, and its f32 operations
+    (8 per filled candidate in each query's stencil) over the f32 peak."""
     from loopy_slam_torch.ops import knn
 
-    h = knn.stencil_rows(grid, queries)  # repeated probes -> empty row
-    fill = grid.cell_fill.long()
-    rows = torch.unique(h)
-    Q = queries.shape[0]
-    nbytes = (int(fill[rows].sum()) * 16 + rows.numel() * 4
-              + Q * (16 if per_query_radius else 12) + 4 + Q * (k * 8 + 4))
-    ops = int(fill[h].sum()) * 8
+    nbytes, ops = knn.query_cost(grid, queries, k, per_query_radius)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
@@ -697,6 +701,92 @@ def run_session(cfg, device):
     return slam, result, summary
 
 
+# a share of a peak above this means the count is wrong
+ROOFLINE_SHARE_MAX = 1.05
+
+
+def counter_backward_check(device):
+    """utils/cost.CostCounter sees autograd's backward on the card (the
+    engine runs CUDA backward on a thread of its own): a Linear's forward
+    and backward read 3x its forward product. Raises otherwise."""
+    import torch
+
+    from loopy_slam_torch.utils.cost import CostCounter
+
+    lin = torch.nn.Linear(128, 128).to(device)
+    x = torch.randn(4096, 128, device=device, requires_grad=True)
+    with CostCounter() as fwd:
+        lin(x)
+    with CostCounter() as both:
+        y = lin(x)
+        torch.autograd.grad(y.sum(), [x, *lin.parameters()])
+    torch.cuda.synchronize()
+    res = {"forward_products": fwd.products,
+           "forward_backward_products": both.products}
+    if not both.products == 3 * fwd.products > 0:
+        raise AssertionError(f"CostCounter missed the backward on the "
+                             f"card: {res}")
+    return res
+
+
+def roofline_report(slam, what, extra=None):
+    """slam.roofline() beside the session's steady times: achieved rates
+    and their shares of the card's f32 and HBM peaks (a mapped frame as
+    mapping.iters / chunk_iters chunks, as the JAX package's bench.py
+    counts it). Prints the `roofline:` line; raises on a count that is
+    zero, a share outside (0, ROOFLINE_SHARE_MAX], or a session the
+    accounting changed."""
+    import numpy as np
+    import torch
+
+    from loopy_slam_torch.ops import knn
+
+    traj = slam.estimate_c2w.copy()
+    feat = slam.map_state.feat.detach().clone()
+    launches = knn.KNN_SELECT_LAUNCHES.count
+    t0 = time.perf_counter()
+    rl = slam.roofline()
+    cost_s = time.perf_counter() - t0
+    med = lambda v: float(np.median(v)) if v else None  # noqa: E731
+    times = {"track": med(slam.timings["track"][1:]),
+             "map": med(slam.timings["map"][1:])}
+    iters = slam.cfg["mapping"]["iters"]
+    res = {"path": what, "accounting_s": cost_s,
+           "track_median_s": times["track"], "map_median_s": times["map"],
+           "mapping_iters": iters, **(extra or {})}
+    failures = []
+    for name, t in times.items():
+        f = rl.get(name)
+        if f is None or not t:
+            failures.append(f"no {name} count or steady time")
+            continue
+        scale = iters / f["chunk_iters"] if name == "map" else 1.0
+        flops, nbytes = f["flops"] * scale, f["bytes"] * scale
+        row = {**f, "tflop_s": flops / t / 1e12, "tb_s": nbytes / t / 1e12,
+               "flop_share": flops / t / PEAK_F32_FLOPS,
+               "byte_share": nbytes / t / PEAK_BYTES_S,
+               "knn_byte_share": f["knn_bytes"] / max(f["bytes"], 1)}
+        res[name] = row
+        if not (f["flops"] > 0 and f["bytes"] > 0):
+            failures.append(f"{name}: a zero count")
+        for key in ("flop_share", "byte_share"):
+            if not 0 < row[key] <= ROOFLINE_SHARE_MAX:
+                failures.append(f"{name}: {key} {row[key]} outside "
+                                f"(0, {ROOFLINE_SHARE_MAX}]")
+    res["trajectory_bit_equal"] = bool(np.array_equal(traj,
+                                                      slam.estimate_c2w))
+    res["features_bit_equal"] = bool(torch.equal(feat, slam.map_state.feat))
+    res["launches_unchanged"] = knn.KNN_SELECT_LAUNCHES.count == launches
+    print("roofline:", json.dumps(res), flush=True)
+    for key in ("trajectory_bit_equal", "features_bit_equal",
+                "launches_unchanged"):
+        if not res[key]:
+            failures.append(f"the accounting changed the session ({key})")
+    if failures:
+        raise AssertionError(f"{what} roofline: " + "; ".join(failures))
+    return res
+
+
 def gate_session(summary, result, what):
     import numpy as np
 
@@ -718,9 +808,11 @@ def slice_phase(n_frames, device):
     print(f"== phase 4: slice-1 path, synthetic room, {n_frames} frames",
           flush=True)
     cfg = room_config(n_frames, os.path.join(HERE, "output", "chip_smoke"))
-    _, result, summary = run_session(cfg, device)
+    slam, result, summary = run_session(cfg, device)
     print("slice:", json.dumps(summary), flush=True)
     gate_session(summary, result, "the slice-1 path")
+    roofline_report(slam, "slice-1",
+                    {"backward_check": counter_backward_check(device)})
     return summary
 
 
@@ -1027,11 +1119,11 @@ def dataset_overlay(out: str, base_yaml: str, fixture: str,
     return path
 
 
-def run_dataset_path(overlay, out):
-    """`python -m loopy_slam_torch.run` (its `main`) on overlay, with the
-    kernel's launch count reset just before and read just after; the
-    session's stats plus launches, run seconds, peak device memory, the
-    final mesh's face count and the visualizer's PNGs."""
+def run_dataset_path(overlay, out, after_run=None):
+    """`python -m loopy_slam_torch.run` (its `main`, with after_run) on
+    overlay, with the kernel's launch count reset just before and read just
+    after; the session's stats plus launches, run seconds, peak device
+    memory, the final mesh's face count and the visualizer's PNGs."""
     import torch
 
     from loopy_slam_torch import run as cli
@@ -1041,7 +1133,7 @@ def run_dataset_path(overlay, out):
     knn.KNN_SELECT_LAUNCHES.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    stats = cli.main([overlay])
+    stats = cli.main([overlay], after_run=after_run)
     run_s = time.perf_counter() - t0
     launches = knn.KNN_SELECT_LAUNCHES.count
     mesh_path = os.path.join(out, "mesh", "final_mesh.ply")
@@ -1142,7 +1234,8 @@ def tum_phase():
         out, os.path.join(HERE, "configs", "TUM_RGBD",
                           "freiburg1_desk.yaml"), fixture, TUM_VIS_FREQ,
         mapping={"color_refine": False})
-    stats, extra = run_dataset_path(overlay, out)
+    stats, extra = run_dataset_path(
+        overlay, out, after_run=lambda slam: roofline_report(slam, "tum"))
 
     cfg = load_config(overlay)
     ds = get_dataset(cfg)

@@ -23,6 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import cost
+
 # Large primes for 3-D spatial hashing (Teschner et al. 2003).
 _P1, _P2, _P3 = 73856093, 19349669, 83492791
 
@@ -301,6 +303,41 @@ def _query_cuda(grid: HashGrid, queries: torch.Tensor, k: int, radius):
     return D, I, nn
 
 
+def query_cost(grid: HashGrid, queries: torch.Tensor, k: int,
+               per_query_radius: bool = False):
+    """The work of query() on these inputs, as (bytes, flops): the least
+    the function must move and compute. Bytes: the fill count and the
+    filled slots of each row the queries touch, read once (empty slots
+    hold the 1e9 sentinel and change no output), the queries, their radii
+    (per_query_radius) and cell_size read, D/I/neighbor_num written.
+    Flops: 8 f32 operations per filled candidate in each query's stencil
+    (3 sub, 3 mul, 2 add). Reads the fill counts on the host (a sync on
+    the card)."""
+    h = stencil_rows(grid, queries)  # repeated probes -> empty row
+    fill = grid.cell_fill.long()
+    rows = torch.unique(h)
+    Q = queries.shape[0]
+    nbytes = (int(fill[rows].sum()) * 16 + rows.numel() * 4
+              + Q * (16 if per_query_radius else 12) + 4 + Q * (k * 8 + 4))
+    return nbytes, int(fill[h].sum()) * 8
+
+
+def _report_cost(grid: HashGrid, queries: torch.Tensor, k: int, radius):
+    """query_cost to every active cost counter (utils/cost.py), which
+    cannot see the kernel: it is launched through ctypes."""
+    if cost.active():
+        per_query = isinstance(radius, torch.Tensor) and radius.dim() == 1
+        with cost.uncounted():
+            nbytes, flops = query_cost(grid, queries, k, per_query)
+        cost.report("knn_select", flops, nbytes)
+
+
+def _select(grid: HashGrid, queries: torch.Tensor, k: int, radius):
+    if queries.device.type == "cpu":
+        return _query_plain(grid, queries, k, radius)
+    return _query_cuda(grid, queries, k, radius)
+
+
 def query(grid: HashGrid, points: torch.Tensor, queries: torch.Tensor,
           k: int, radius, return_pos: bool = False):
     """k nearest neighbors of each query within the 3x3x3 cell stencil.
@@ -311,12 +348,12 @@ def query(grid: HashGrid, points: torch.Tensor, queries: torch.Tensor,
     over-counts), 1e10 where empty; I (Q, k) int32 buffer indices (0 where
     empty); neighbor_num (Q,) int32 count of D < r^2; and, with
     return_pos, the neighbor positions points[I] (1e9 where empty).
-    The table size and row depth come from the grid's own shape.
+    The table size and row depth come from the grid's own shape. Under a
+    cost counter the call counts as query_cost, on either route.
     """
-    if queries.device.type == "cpu":
-        D, I, nn = _query_plain(grid, queries, k, radius)
-    else:
-        D, I, nn = _query_cuda(grid, queries, k, radius)
+    _report_cost(grid, queries, k, radius)
+    with cost.uncounted():
+        D, I, nn = _select(grid, queries, k, radius)
     if return_pos:
         pos = points[I.reshape(-1).long()].reshape(queries.shape[0], k, 3)
         pos = torch.where((D < 1e10)[..., None], pos,
@@ -327,17 +364,20 @@ def query(grid: HashGrid, points: torch.Tensor, queries: torch.Tensor,
 
 def query_chunked(grid: HashGrid, points, queries, k: int, radius,
                   chunk: int = 16384):
-    """query() with the same result. On the card the kernel has no
-    temporary, so it runs as one launch; on the CPU the plain version's
+    """query() with the same result (and cost). On the card the kernel has
+    no temporary, so it runs as one launch; on the CPU the plain version's
     (chunk, 27*M, 4) gather bounds its memory."""
     Q = queries.shape[0]
     if queries.device.type != "cpu" or Q <= chunk:
         return query(grid, points, queries, k, radius)
-    r = torch.as_tensor(radius, dtype=torch.float32, device=queries.device)
-    r = r.expand(Q) if r.dim() == 0 else r
-    outs = [query(grid, points, queries[s:s + chunk], k, r[s:s + chunk])
-            for s in range(0, Q, chunk)]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+    _report_cost(grid, queries, k, radius)
+    with cost.uncounted():
+        r = torch.as_tensor(radius, dtype=torch.float32,
+                            device=queries.device)
+        r = r.expand(Q) if r.dim() == 0 else r
+        outs = [_select(grid, queries[s:s + chunk], k, r[s:s + chunk])
+                for s in range(0, Q, chunk)]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def brute_force_knn(points, valid, queries, k):

@@ -39,13 +39,15 @@ def latest_checkpoint(output: str) -> str:
     return cands[-1]
 
 
-def session(mesh, cfg, device=None, resume=None):
+def session(mesh, cfg, device=None, resume=None, after_run=None):
     """One session of the CLI on this rank (mesh None: the only one): run,
     score the trajectory and, on rank 0 of a finished run, the final
     evaluation. Returns main()'s statistics; on a mesh also `rank`: this
     rank's checksum of the replicated state (LoopySLAM.
     replicated_checksum), k-NN kernel launches during the run, shard
-    count and collective times."""
+    count and collective times. after_run(slam), if given, is called on
+    rank 0 with the finished session before it closes; its result goes
+    under "after_run"."""
     import numpy as np
     import torch
 
@@ -116,12 +118,14 @@ def session(mesh, cfg, device=None, resume=None):
                       "evaluation with loopy_slam_torch.tools.eval_ate / "
                       "get_mesh_tsdf_fusion)")
                 stats["eval_error"] = f"{type(e).__name__}: {e}"
+        if after_run is not None and slam.rank == 0:
+            stats["after_run"] = after_run(slam)
     finally:
         slam.close()
     return stats
 
 
-def main(argv=None):
+def main(argv=None, after_run=None):
     """Run the CLI. Returns the ATE statistics with the final evaluation's
     metrics merged in (or, if the evaluation failed, its error under
     "eval_error"), so callers can gate on them; besides, the session's
@@ -129,7 +133,9 @@ def main(argv=None):
     times (`timings_s`, `eval_timings_s`), the color-gradient picks'
     counts (`grad_stats`), the mapped frames that ran bundle adjustment
     (`ba_frames`) and, on a resumed run, `resume`
-    (the checkpoint, the first frame run and the restored map's points)."""
+    (the checkpoint, the first frame run and the restored map's points).
+    after_run(slam) (one device only) is called with the finished
+    session, e.g. for its roofline(); its result is under "after_run"."""
     from loopy_slam_torch.config import load_config
     from loopy_slam_torch.parallel.mesh import launch
     from loopy_slam_torch.slam import parallel_ranks
@@ -167,7 +173,9 @@ def main(argv=None):
 
     n = parallel_ranks(cfg)
     if n == 1:
-        return session(None, cfg, args.device, args.resume)
+        return session(None, cfg, args.device, args.resume, after_run)
+    if after_run is not None:
+        raise ValueError("after_run runs on one device only")
     # every rank runs the session; rank 0's statistics, with each rank's
     # own summary under "ranks"
     results = launch(session, n, cfg, args.device, args.resume,

@@ -81,7 +81,9 @@ something else.
 
 from __future__ import annotations
 
+import copy
 import os
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -112,6 +114,7 @@ from .tools.eval_images import evaluate_renders
 from .tools.eval_recon import calc_2d_metric, calc_3d_metric
 from .tools.get_mesh_tsdf_fusion import mesh_from_renders
 from .utils.datasets import get_dataset
+from .utils.cost import CostCounter
 from .utils.io import (load_checkpoint, save_checkpoint, write_ply_mesh,
                        write_ply_points)
 from .utils.telemetry import WandbLogger
@@ -309,6 +312,9 @@ class LoopySLAM:
         self.track_health = torch.zeros(3, device=self.device)
         self._last_rejects = 0.0
         self.timings: Dict[str, List[float]] = {"track": [], "map": []}
+        # the last tracked frame's and the last full steady-state mapping
+        # chunk's calls, for roofline()
+        self._roofline_calls: Dict[str, Dict] = {}
         # per tracked frame, the color-gradient pool's size before its
         # resample; per mapped frame, the locations the gradient picks added
         self.grad_stats: Dict[str, List[int]] = {"track_pool": [],
@@ -511,9 +517,12 @@ class LoopySLAM:
         elif self.ray_dp:
             res = self._track_on_rank0(color, depth, cam7, kw)
         else:
+            args = (s.pos, s.grid, s.feat, color, depth, cam7)
+            self._keep_call("track", tracker_mod.track_frame, args,
+                            (self.topts, self.ropts_tracker), kw)
             res = tracker_mod.track_frame(
-                self.dec, s.pos, s.grid, s.feat, color, depth, cam7,
-                self.draw, self.topts, self.ropts_tracker, **kw)
+                self.dec, *args, self.draw, self.topts, self.ropts_tracker,
+                **kw)
         first_loss, best_loss = res.first_loss, res.best_loss
         self.track_health = res.health
         if self.encode_exposure:
@@ -1157,11 +1166,22 @@ class LoopySLAM:
                     st = mapper_mod.start_color_stage(
                         st, self.dec, feat.shape[1] // 2,
                         with_cams=ba is not None)
+                kw = dict(kf_rq=krq, kf_exposure=kf_exp, exp=exp,
+                          **({} if ba is None
+                             else {**ba, "iter_offset": done}))
+                if (g + c == chunk and not init and not color_refine
+                        and self.mesh is None):
+                    # a full steady-state chunk: the hot call
+                    args = (feat, st, dec_mask, feat_mask,
+                            self.map_state.pos, self.map_state.grid, kc, kd,
+                            kp)
+                    tail = (g, c, lrs_geo, lrs_col, self.mopts,
+                            self.ropts_mapper, pix_per_frame)
+                    self._keep_call("map", mapper_mod.optimize_map, args,
+                                    tail, kw, chunk_iters=chunk)
                 out = self._optimize(
                     feat, st, dec_mask, feat_mask, kc, kd, kp, g, c,
-                    lrs_geo, lrs_col, pix_per_frame, kf_rq=krq,
-                    kf_exposure=kf_exp, exp=exp,
-                    **({} if ba is None else {**ba, "iter_offset": done}))
+                    lrs_geo, lrs_col, pix_per_frame, **kw)
                 feat, st, aux = out[:3]
                 if self.encode_exposure:
                     exp = out[3]
@@ -1225,6 +1245,16 @@ class LoopySLAM:
             self._add_keyframe(idx, color, depth, cur_c2w, gt_c2w)
             self.keyframe_global_list.append(idx)
         self.prev_mapped_idx = idx
+
+    def _keep_call(self, name, fn, args, tail, kw, **extra):
+        """Keep a hot call, fn(dec, *args, draw, *tail, **kw), for
+        roofline(): references to its inputs (the session replaces them,
+        it never writes them in place), copies of the decoders' parameters
+        (which the mapper trains in place) and the draw stream's state."""
+        self._roofline_calls[name] = dict(
+            fn=fn, args=args, tail=tail, kw=kw,
+            params=[p.detach().clone() for p in self.dec.parameters()],
+            draw=self.draw.gen.get_state(), **extra)
 
     def _shard_valid(self):
         return (torch.arange(self._smap.pos.shape[0], device=self.device)
@@ -1536,9 +1566,20 @@ class LoopySLAM:
                 raise RuntimeError(f"prefetch out of order: {pf_idx} != {idx}")
             return item
 
+        # with LOOPY_PROGRESS set, one line a frame on stderr
+        progress = os.environ.get("LOOPY_PROGRESS")
         idx = start_idx
         try:
             for idx in range(start_idx, self.n_img):
+                if progress:
+                    err = (np.linalg.norm(self.estimate_c2w[idx - 1][:3, 3]
+                                          - self.gt_c2w[idx - 1][:3, 3])
+                           if idx > 0 else 0.0)
+                    print(f"[frame {idx}/{self.n_img} "
+                          f"t={time.perf_counter():.0f} prev_err={err:.4f} "
+                          f"pts={self._count_host} "
+                          f"segs={len(self.fm.fragments)}]",
+                          file=sys.stderr, flush=True)
                 t_f = time.perf_counter()
                 _, color_np, depth_np, gt_c2w = _next_frame(idx)
                 self.timings.setdefault("data", []).append(
@@ -1624,6 +1665,72 @@ class LoopySLAM:
             "gt_c2w": self.gt_c2w[:idx + 1],
             "n_points": int(self.map_state.count),
         }
+
+    # ------------------------------------------------------------------
+    def roofline(self) -> Dict[str, Dict[str, int]]:
+        """The device work of the two hot calls, counted by
+        utils/cost.CostCounter: {"track": {...}, "map": {..., "chunk_iters"}}
+        with flops, bytes, transcendentals, the products' flops and the
+        k-NN kernel's share (knn_flops, knn_bytes: ops/knn.query_cost).
+        "track" is the last tracked frame: its k-NN pool builds and every
+        iteration, forward and backward; "map" is the last full
+        steady-state mapping chunk (chunk_iters iterations, not the first
+        frame, not color refinement): its pool build and every iteration.
+        A mapped frame of n iterations is about n / chunk_iters chunks.
+        Each call runs once more under the counter, on a copy of the
+        decoders and a draw stream set to the captured state; the session
+        is left as it was (trajectory, map, decoders, Adam states, draw
+        streams, timings, the kernel's launch count). Empty until a frame
+        was tracked or a full chunk ran; {} on a mesh.
+
+        The captured inputs stay referenced until the next capture: the
+        last tracked frame (color, depth, pose, pixel pool, radii) with
+        the map's positions, index and features as it saw them, and the
+        last full chunk's window (colors, depths, poses, radius maps) with
+        the map's positions and index, the features and the Adam state at
+        the chunk's start, beside a copy of the decoders each: up to about
+        two map states beyond what the session itself holds.
+
+        The JAX package's roofline() reads XLA's cost analysis instead,
+        which counts the body of a lax.fori_loop once: its "track" covers
+        one iteration plus the set-up, the same at any tracking.iters
+        (tests/test_torch_cost.py holds both), and its "map" one of the
+        chunk's iterations. This count is the work executed: it grows with
+        the iterations, so a rate divides it by the call's whole time."""
+        if self.mesh is not None:
+            return {}
+        out = {}
+        launches = knn.KNN_SELECT_LAUNCHES.count
+        try:
+            for name, kept in self._roofline_calls.items():
+                cc = self._count_call(kept)
+                knn_flops, knn_bytes = cc.reported.get("knn_select", (0, 0))
+                out[name] = {"flops": cc.flops, "bytes": cc.bytes,
+                             "transcendentals": cc.transcendentals,
+                             "products": cc.products,
+                             "knn_flops": knn_flops, "knn_bytes": knn_bytes}
+                if "chunk_iters" in kept:
+                    out[name]["chunk_iters"] = kept["chunk_iters"]
+        finally:
+            knn.KNN_SELECT_LAUNCHES.count = launches
+        return out
+
+    def _count_call(self, kept, tail=None) -> CostCounter:
+        """Run a kept call (_keep_call) once more under a CostCounter, on a
+        copy of the decoders with the kept parameters and a draw stream at
+        the kept state; `tail` replaces the call's options."""
+        dec = copy.deepcopy(self.dec)
+        with torch.no_grad():
+            for p, v in zip(dec.parameters(), kept["params"]):
+                p.copy_(v)
+        draw = TorchDraws(0, self.device)
+        draw.gen.set_state(kept["draw"])
+        with CostCounter() as cc:
+            kept["fn"](dec, *kept["args"], draw,
+                       *(kept["tail"] if tail is None else tail),
+                       **kept["kw"])
+        self._sync()
+        return cc
 
     # ------------------------------------------------------------------
     def replicated_checksum(self) -> str:

@@ -3,10 +3,12 @@ loopy_slam_tpu/tools/eval_ate.py: the checkpoint mode, with `--plot`'s
 top-view figure <output>/ate.png, and the TUM-file mode). matplotlib is
 imported only for the figure (the CUDA machine has none).
 
-CLI:  python -m loopy_slam_torch.tools.eval_ate --output DIR [--no_align]
-          [--plot]
-      python -m loopy_slam_torch.tools.eval_ate --est_traj F --gt_traj F
-          [--offset S] [--max_difference S] [--scale X] [--no_align]
+CLI:  python -m loopy_slam_torch.tools.eval_ate [CONFIG] --output DIR
+          [--no_align] [--plot]
+      python -m loopy_slam_torch.tools.eval_ate [CONFIG] --est_traj F
+          --gt_traj F [--offset S] [--max_difference S] [--scale X]
+          [--no_align]
+CONFIG, a scene's YAML, is accepted and ignored, as the JAX tool does.
 """
 
 from __future__ import annotations
@@ -182,6 +184,9 @@ def evaluate_from_output(output_dir: str, plot: bool = False
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("config", nargs="?", default=None,
+                    help="a scene config (accepted and ignored, as the JAX "
+                         "package's tool does)")
     ap.add_argument("--output", default=None,
                     help="run output dir (checkpoint mode)")
     ap.add_argument("--est_traj", default=None,

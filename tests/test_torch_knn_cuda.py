@@ -1,5 +1,8 @@
 """The CUDA k-NN kernel (loopy_slam_torch/csrc/knn_select.cu) against its
-plain PyTorch version, on the card. Skips without one.
+plain PyTorch version, on the card, and the cost counter
+(utils/cost.CostCounter) there: the kernel's reported cost equals the plain
+route's, and autograd's backward (on the engine's CUDA thread) is counted.
+Skips without a card.
 
 Imports neither jax nor the JAX package, so it also runs on a machine that
 has neither (the repo's conftest imports jax, hence --noconftest there):
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from loopy_slam_torch.ops import knn
+from loopy_slam_torch.utils.cost import CostCounter
 
 pytestmark = pytest.mark.cuda
 
@@ -166,3 +170,25 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         knn._query_cuda(g._replace(cell_fill=g.cell_fill.cpu()), q, 8, 0.06)
     D, I, nn = knn._query_cuda(g, q[:0], 8, 0.06)  # no queries: no launch
     assert D.shape == (0, 8) and nn.shape == (0,)
+
+
+def test_query_counts_the_same_on_card_and_cpu(dev):
+    """Under a CostCounter a query counts ops/knn.query_cost, and only it,
+    on the kernel's route and on the plain version's."""
+    counts = []
+    for d in (dev, torch.device("cpu")):
+        g, q, r = grid_and_queries(d, 32)
+        with CostCounter() as cc:
+            knn.query(g, None, q, 8, r)
+        counts.append((cc.flops, cc.bytes, cc.reported))
+    assert counts[0] == counts[1]
+    assert counts[0][2]["knn_select"][1] > 0
+
+
+def test_cost_counter_sees_the_backward_on_the_card(dev):
+    lin = torch.nn.Linear(64, 32).to(dev)
+    x = torch.randn(256, 64, device=dev, requires_grad=True)
+    with CostCounter() as cc:
+        y = lin(x)
+        torch.autograd.grad(y.sum(), [x, *lin.parameters()])
+    assert cc.products == 3 * 2 * 256 * 64 * 32

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--frames N] [--profile] [--variants]
                           [--dataset-runs N] [--base-runs N]
-                          [--tools-runs N] [--debug-index]
+                          [--tools-runs N] [--multi-runs N]
+                          [--debug-index]
 
 Phases:
   1. the card's name and power limit, torch and CUDA versions;
@@ -28,12 +29,15 @@ Phases:
      autograd's backward on the card (a Linear's forward and backward
      read 3x its forward product) and prints the path's `roofline:` line
      (roofline_report: LoopySLAM.roofline()'s flops, transcendentals and
-     bytes of the last tracked frame and the last full mapping chunk, the
-     k-NN's share of the bytes, the median steady times of a tracked frame
-     (the second on) and of a mapped frame (the second on), achieved
-     TFLOP/s and TB/s and their shares of the card's f32 and HBM peaks,
-     the map's per chunk scaled by mapping.iters / chunk_iters as the JAX
-     package's bench.py does, and the accounting's own seconds), gated on
+     bytes of the last tracked frame and of the last steady mapped frame
+     (its n_geo and n_col, the counts of its last full geometry and color
+     chunks, which scaled by their stages' iterations sum to the frame's
+     count), each frame's index and own wall time beside the median
+     steady times of a tracked and a mapped frame (the second on), the
+     k-NN's share of the bytes, the counter's unclassified op names,
+     achieved TFLOP/s and TB/s over each frame's own time and their
+     shares of the card's f32 and HBM peaks, and the accounting's own
+     seconds), gated on
      flops and bytes > 0, every share in (0, 1.05] (more than the peak
      means a wrong count) and the trajectory, the map's features and the
      launch count unchanged by the accounting;
@@ -55,11 +59,14 @@ Phases:
      with --stop 5, then with --resume in a fresh session, which runs
      frames 6-10, color refinement and the final evaluation; prints an
      `eval:` line (resume frame, map counts at the checkpoint and after
-     restore, visualizer images and time per vis, ATE, rejects, render
-     and reconstruction metrics, the evaluation's step times, launches)
-     and gates on the
+     restore, visualizer images and time per vis, the decode check of the
+     visualizer's JPEG, ATE, rejects, render and reconstruction metrics,
+     the evaluation's step times, launches) and gates on the
      resume at frame 6 with the checkpoint's count restored, the four
-     visualizer PNGs, ATE <= 3 mm, no rejects, a mesh with faces, psnr >
+     visualizer JPEGs (<idx:05d>_<iter:04d>.jpg, the JAX package's
+     names), the last frame's visualizer JPEG decoded by read_jpeg within
+     VIS_JPEG_MIN_PSNR_DB of its six panels, ATE <= 3 mm, no rejects, a
+     mesh with faces, psnr >
      12, accuracy < 15 cm, completion ratio > 20, a finite lpips, no
      evaluation error and launches > 0; then (6b) holds the kernel against
      its plain version at the render-chunk shape (4096 rays x N_surface
@@ -206,10 +213,11 @@ result line); `--base-runs N` runs only phases 11 and 11b (writing phase
 8's sequence first), N times; `--tools-runs N` runs only phase 12, N
 times (phase 6 first when its run directory has no mesh);
 `--multi-runs N` runs only phase 13 (N times, with 13d once);
-`--debug-index` (a debugging mode, with `--base-runs`) checks every CUDA
-index op's indices on the device until the first mapped frame ends and
-prints the call sites out of range (IndexProbe: it clamps them, so gates
-do not hold in this mode).
+`--debug-index` (a debugging mode, with
+`--base-runs`) checks every CUDA index op's indices on the device until
+the first mapped frame ends and prints the call sites out of range
+(IndexProbe: it clamps them, so gates do not hold in this mode). A
+failing phase's traceback goes to stdout as well as stderr.
 Imports nothing of JAX; needs no PyYAML, cv2 or PIL (phases 3-5 build
 their config from DEFAULTS, phases 6 and 8-10 read YAML with the port's
 own reader, and phases 8-12 write and read their PNGs, JPEGs and EXRs
@@ -225,6 +233,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -730,12 +739,14 @@ def counter_backward_check(device):
 
 
 def roofline_report(slam, what, extra=None):
-    """slam.roofline() beside the session's steady times: achieved rates
-    and their shares of the card's f32 and HBM peaks (a mapped frame as
-    mapping.iters / chunk_iters chunks, as the JAX package's bench.py
-    counts it). Prints the `roofline:` line; raises on a count that is
-    zero, a share outside (0, ROOFLINE_SHARE_MAX], or a session the
-    accounting changed."""
+    """slam.roofline() beside the times of the frames it counted: achieved
+    rates and their shares of the card's f32 and HBM peaks, each count
+    over its own frame's wall time (the tracked frame's; the mapped
+    frame's, whose count is its two stages' chunks scaled by their
+    iterations), with the steady medians beside them and the counter's
+    unclassified op names. Prints the `roofline:` line; raises on a count
+    that is zero, a share outside (0, ROOFLINE_SHARE_MAX], or a session
+    the accounting changed."""
     import numpy as np
     import torch
 
@@ -748,23 +759,20 @@ def roofline_report(slam, what, extra=None):
     rl = slam.roofline()
     cost_s = time.perf_counter() - t0
     med = lambda v: float(np.median(v)) if v else None  # noqa: E731
-    times = {"track": med(slam.timings["track"][1:]),
-             "map": med(slam.timings["map"][1:])}
-    iters = slam.cfg["mapping"]["iters"]
     res = {"path": what, "accounting_s": cost_s,
-           "track_median_s": times["track"], "map_median_s": times["map"],
-           "mapping_iters": iters, **(extra or {})}
+           "track_median_s": med(slam.timings["track"][1:]),
+           "map_median_s": med(slam.timings["map"][1:]), **(extra or {})}
     failures = []
-    for name, t in times.items():
+    for name in ("track", "map"):
         f = rl.get(name)
-        if f is None or not t:
-            failures.append(f"no {name} count or steady time")
+        t = f and f["seconds"]
+        if not t:
+            failures.append(f"no {name} count or frame time")
             continue
-        scale = iters / f["chunk_iters"] if name == "map" else 1.0
-        flops, nbytes = f["flops"] * scale, f["bytes"] * scale
-        row = {**f, "tflop_s": flops / t / 1e12, "tb_s": nbytes / t / 1e12,
-               "flop_share": flops / t / PEAK_F32_FLOPS,
-               "byte_share": nbytes / t / PEAK_BYTES_S,
+        row = {**f, "tflop_s": f["flops"] / t / 1e12,
+               "tb_s": f["bytes"] / t / 1e12,
+               "flop_share": f["flops"] / t / PEAK_F32_FLOPS,
+               "byte_share": f["bytes"] / t / PEAK_BYTES_S,
                "knn_byte_share": f["knn_bytes"] / max(f["bytes"], 1)}
         res[name] = row
         if not (f["flops"] > 0 and f["bytes"] > 0):
@@ -914,6 +922,41 @@ ACCURACY_GATE_CM = 15.0
 COMPLETION_RATIO_GATE = 20.0
 
 
+# the visualizer's JPEG of a rendered frame, decoded, against the six
+# panels it was made from (4:2:0 at utils/visualizer.JPEG_QUALITY;
+# tests/test_torch_eval.py: 30.2 dB on a 60x80 synthetic-room frame with
+# noisy residual panels, 33.3 dB at room.yaml's 340x600)
+VIS_JPEG_MIN_PSNR_DB = 25.0
+
+
+def vis_jpeg_check(slam, out):
+    """Render the session's last frame through utils/visualizer.Visualizer
+    into `out`, decode the JPEG it writes with the port's read_jpeg and
+    compare it with six_panels of the same render. Returns {file, shape,
+    psnr_db, seconds}."""
+    import numpy as np
+
+    from loopy_slam_torch.utils.imageio import read_jpeg
+    from loopy_slam_torch.utils.visualizer import Visualizer, six_panels
+
+    t0 = time.perf_counter()
+    idx = slam.n_img - 1
+    _, color, depth, _ = slam.dataset[idx]
+    color, depth = np.asarray(color), np.asarray(depth)
+    vis = Visualizer(1, out, slam, verbose=False)
+    rendered, rgb = vis.vis(idx, 0, depth, color, slam.estimate_c2w[idx],
+                            r_query_map=slam._dynamic_radius(color)[1],
+                            freq_override=True)
+    path = os.path.join(out, f"{idx:05d}_0000.jpg")
+    got = read_jpeg(path).astype(np.float64)
+    want = six_panels(depth, rendered, color, rgb)
+    mse = float(np.mean((got - want) ** 2)) if got.shape == want.shape \
+        else float("inf")
+    return {"file": os.path.relpath(path, HERE), "shape": list(got.shape),
+            "psnr_db": float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12))),
+            "seconds": time.perf_counter() - t0}
+
+
 def cli_overlay(out: str) -> str:
     """Write the CLI path's config: room.yaml as shipped, with only the
     frame count, the output directory and the visualizer frequency
@@ -953,11 +996,12 @@ def cli_phase():
     first = cli.main([overlay, "--stop", str(CLI_STOP)])
     t1 = time.perf_counter()
     ckpt = load_checkpoint(cli.latest_checkpoint(out))
-    second = cli.main([overlay, "--resume"])
+    second = cli.main([overlay, "--resume"], after_run=lambda slam:
+                      vis_jpeg_check(slam, os.path.join(out, "vis_check")))
     t2 = time.perf_counter()
     launches = knn.KNN_SELECT_LAUNCHES.count
     vis = {d: sorted(f for f in os.listdir(os.path.join(out, d))
-                     if f.endswith(".png"))
+                     if f.endswith(".jpg"))
            for d in ("tracking_vis", "mapping_vis")}
     vis_bytes = {f"{d}/{f}": os.path.getsize(os.path.join(out, d, f))
                  for d, names in vis.items() for f in names}
@@ -976,7 +1020,8 @@ def cli_phase():
         "checkpoint_points": int(ckpt["map"]["count"]),
         "resume": second.get("resume"),
         "stop_run_s": t1 - t0, "resume_run_s": t2 - t1,
-        "vis_images": vis_bytes, "vis_s": vis_s,
+        "vis_images": vis_bytes, "vis_jpeg_check": second["after_run"],
+        "vis_s": vis_s,
         "vis_median_s": sorted(vis_s)[len(vis_s) // 2] if vis_s else None,
         "ate_rmse_m": second["rmse"],
         "ate_rmse_noalign_m": second["rmse_no_align"],
@@ -993,7 +1038,7 @@ def cli_phase():
     }
     print("eval:", json.dumps(summary), flush=True)
     cfg = load_config(overlay)
-    want = {f"{d}/{i:05d}_{cfg[part]['iters'] - 1:04d}.png"
+    want = {f"{d}/{i:05d}_{cfg[part]['iters'] - 1:04d}.jpg"
             for d, part in (("tracking_vis", "tracking"),
                             ("mapping_vis", "mapping"))
             for i in (CLI_STOP, 2 * CLI_STOP)}
@@ -1010,6 +1055,10 @@ def cli_phase():
     if not want <= {k for k, v in vis_bytes.items() if v > 0}:
         failures.append(f"visualizer images missing: "
                         f"{sorted(want - set(vis_bytes))}")
+    check = summary["vis_jpeg_check"]
+    if not check["psnr_db"] >= VIS_JPEG_MIN_PSNR_DB:
+        failures.append(f"the visualizer's JPEG decodes {check['psnr_db']} "
+                        f"dB from its panels, < {VIS_JPEG_MIN_PSNR_DB}")
     if not summary["ate_rmse_m"] <= ATE_GATE_M:
         failures.append(f"ATE {summary['ate_rmse_m']} m > {ATE_GATE_M} m")
     if summary["health_rejects"]:
@@ -1123,7 +1172,7 @@ def run_dataset_path(overlay, out, after_run=None):
     """`python -m loopy_slam_torch.run` (its `main`, with after_run) on
     overlay, with the kernel's launch count reset just before and read just
     after; the session's stats plus launches, run seconds, peak device
-    memory, the final mesh's face count and the visualizer's PNGs."""
+    memory, the final mesh's face count and the visualizer's JPEGs."""
     import torch
 
     from loopy_slam_torch import run as cli
@@ -1142,7 +1191,7 @@ def run_dataset_path(overlay, out, after_run=None):
     vis = sorted(f"{d}/{f}" for d in ("tracking_vis", "mapping_vis")
                  if os.path.isdir(os.path.join(out, d))
                  for f in os.listdir(os.path.join(out, d))
-                 if f.endswith(".png"))
+                 if f.endswith(".jpg"))
     return stats, {"knn_select_launches": launches, "run_s": run_s,
                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                    "mesh_faces": n_faces, "vis_images": vis}
@@ -2918,4 +2967,12 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception:
+        # the failing phase's traceback on stdout as well, after the
+        # phase's own lines (a device-side assert prints its line from the
+        # device; the CUDA error reaches Python at the next sync)
+        traceback.print_exc(file=sys.stdout)
+        sys.stdout.flush()
+        raise

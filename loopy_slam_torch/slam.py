@@ -518,8 +518,10 @@ class LoopySLAM:
             res = self._track_on_rank0(color, depth, cam7, kw)
         else:
             args = (s.pos, s.grid, s.feat, color, depth, cam7)
-            self._keep_call("track", tracker_mod.track_frame, args,
-                            (self.topts, self.ropts_tracker), kw)
+            self._roofline_calls["track"] = dict(
+                self._keep_call(tracker_mod.track_frame, args,
+                                (self.topts, self.ropts_tracker), kw),
+                idx=idx)
             res = tracker_mod.track_frame(
                 self.dec, *args, self.draw, self.topts, self.ropts_tracker,
                 **kw)
@@ -1158,6 +1160,10 @@ class LoopySLAM:
         feat = (self._smap.feat if self.map_sharded
                 else self.map_state.feat)
         aux = None
+        # a steady mapped frame keeps its last full chunk of each stage
+        # for roofline()
+        kept = ({} if not init and not color_refine and self.mesh is None
+                else None)
         for _ in range(5 if color_refine else 1):
             st = None
             done = 0
@@ -1169,16 +1175,14 @@ class LoopySLAM:
                 kw = dict(kf_rq=krq, kf_exposure=kf_exp, exp=exp,
                           **({} if ba is None
                              else {**ba, "iter_offset": done}))
-                if (g + c == chunk and not init and not color_refine
-                        and self.mesh is None):
-                    # a full steady-state chunk: the hot call
+                if kept is not None and g + c == chunk:
                     args = (feat, st, dec_mask, feat_mask,
                             self.map_state.pos, self.map_state.grid, kc, kd,
                             kp)
                     tail = (g, c, lrs_geo, lrs_col, self.mopts,
                             self.ropts_mapper, pix_per_frame)
-                    self._keep_call("map", mapper_mod.optimize_map, args,
-                                    tail, kw, chunk_iters=chunk)
+                    kept["geo" if g else "col"] = self._keep_call(
+                        mapper_mod.optimize_map, args, tail, kw)
                 out = self._optimize(
                     feat, st, dec_mask, feat_mask, kc, kd, kp, g, c,
                     lrs_geo, lrs_col, pix_per_frame, **kw)
@@ -1188,6 +1192,11 @@ class LoopySLAM:
                 if ba is not None:
                     ba["cams"] = out[-1]
                 done += g + c
+        if (kept is not None and ("geo" in kept or not n_geo)
+                and ("col" in kept or not n_col)):
+            self._roofline_calls["map"] = dict(
+                chunks=kept, idx=idx, n_geo=n_geo, n_col=n_col,
+                chunk_iters=chunk)
         if self.map_sharded:
             self._smap = self._smap._replace(feat=feat)
             self._smap_dirty = True
@@ -1246,15 +1255,23 @@ class LoopySLAM:
             self.keyframe_global_list.append(idx)
         self.prev_mapped_idx = idx
 
-    def _keep_call(self, name, fn, args, tail, kw, **extra):
-        """Keep a hot call, fn(dec, *args, draw, *tail, **kw), for
+    def _keep_call(self, fn, args, tail, kw):
+        """A hot call, fn(dec, *args, draw, *tail, **kw), kept for
         roofline(): references to its inputs (the session replaces them,
         it never writes them in place), copies of the decoders' parameters
         (which the mapper trains in place) and the draw stream's state."""
-        self._roofline_calls[name] = dict(
-            fn=fn, args=args, tail=tail, kw=kw,
-            params=[p.detach().clone() for p in self.dec.parameters()],
-            draw=self.draw.gen.get_state(), **extra)
+        return dict(fn=fn, args=args, tail=tail, kw=kw,
+                    params=[p.detach().clone()
+                            for p in self.dec.parameters()],
+                    draw=self.draw.gen.get_state())
+
+    def _time_frame(self, name, idx, seconds):
+        """Record a tracked or mapped frame's wall time, and stamp it on
+        the call roofline() keeps when that call is this frame's."""
+        self.timings[name].append(seconds)
+        kept = self._roofline_calls.get(name)
+        if kept is not None and kept["idx"] == idx:
+            kept["seconds"] = seconds
 
     def _shard_valid(self):
         return (torch.arange(self._smap.pos.shape[0], device=self.device)
@@ -1606,7 +1623,7 @@ class LoopySLAM:
                     t0 = time.perf_counter()
                     self.estimate_c2w[idx] = self.track_frame(
                         idx, color, depth, color_np, depth_np)
-                    self.timings["track"].append(time.perf_counter() - t0)
+                    self._time_frame("track", idx, time.perf_counter() - t0)
                     self._vis("tracking", idx, self.topts.iters, depth_np,
                               color_np)
 
@@ -1617,7 +1634,7 @@ class LoopySLAM:
                     self.map_frame(idx, color, depth, gt_c2w, depth_np,
                                    color_np)
                     self._sync()
-                    self.timings["map"].append(time.perf_counter() - t0)
+                    self._time_frame("map", idx, time.perf_counter() - t0)
                     self._vis("mapping", idx, self.cfg["mapping"]["iters"],
                               depth_np, color_np)
                     if (idx == self.n_img - 1
@@ -1667,53 +1684,101 @@ class LoopySLAM:
         }
 
     # ------------------------------------------------------------------
-    def roofline(self) -> Dict[str, Dict[str, int]]:
-        """The device work of the two hot calls, counted by
-        utils/cost.CostCounter: {"track": {...}, "map": {..., "chunk_iters"}}
-        with flops, bytes, transcendentals, the products' flops and the
-        k-NN kernel's share (knn_flops, knn_bytes: ops/knn.query_cost).
+    def roofline(self) -> Dict[str, Dict]:
+        """The device work of a tracked frame and of a mapped frame,
+        counted by utils/cost.CostCounter, with flops, bytes,
+        transcendentals, the products' flops, the k-NN kernel's share
+        (knn_flops, knn_bytes: ops/knn.query_cost) and the names of ops
+        the counter has no rule for (unclassified: their bytes count,
+        their flops do not), beside the frame's index (idx) and its wall
+        time in run() (seconds; None for a frame not timed there).
+
         "track" is the last tracked frame: its k-NN pool builds and every
-        iteration, forward and backward; "map" is the last full
-        steady-state mapping chunk (chunk_iters iterations, not the first
-        frame, not color refinement): its pool build and every iteration.
-        A mapped frame of n iterations is about n / chunk_iters chunks.
+        iteration, forward and backward.
+
+        "map" is the last steady mapped frame (not frame 0, not color
+        refinement) that ran a full chunk of chunk_iters iterations in each
+        of its stages: n_geo geometry iterations (no color loss, no color
+        backward) then n_col color iterations, in optimize_map calls of at
+        most chunk_iters (mapper.stage_chunks). Each stage's last full
+        chunk is counted once more ("geo_chunk", "col_chunk": the counts
+        of chunk_iters iterations and the chunk's own pool build), and the
+        frame's count is their sum scaled by each stage's iterations:
+        geo_chunk * n_geo / chunk_iters + col_chunk * n_col / chunk_iters.
+        The scaling counts the pool build (its rays and its k-NN) in
+        proportion to the iterations where the frame runs one a chunk, a
+        partial chunk included; the k-NN is under 0.02% of a chunk's bytes
+        on the card's paths, and tests/test_torch_cost.py holds the sum
+        against a count of every chunk of the frame. On a bundle-adjusted
+        frame every chunk trains the window's poses (BA's window sets only
+        their learning rate), so the kept color chunk counts that work
+        too, whether or not the window falls in it.
+
         Each call runs once more under the counter, on a copy of the
         decoders and a draw stream set to the captured state; the session
         is left as it was (trajectory, map, decoders, Adam states, draw
-        streams, timings, the kernel's launch count). Empty until a frame
-        was tracked or a full chunk ran; {} on a mesh.
+        streams, timings, the kernel's launch count). A key is missing
+        until its call ran; {} on a mesh.
 
         The captured inputs stay referenced until the next capture: the
         last tracked frame (color, depth, pose, pixel pool, radii) with
         the map's positions, index and features as it saw them, and the
-        last full chunk's window (colors, depths, poses, radius maps) with
-        the map's positions and index, the features and the Adam state at
-        the chunk's start, beside a copy of the decoders each: up to about
-        two map states beyond what the session itself holds.
+        two chunks' window (colors, depths, poses, radius maps) with the
+        map's positions and index, and the features and the Adam state at
+        each chunk's start, beside a copy of the decoders each: up to about
+        three map states beyond what the session itself holds.
 
         The JAX package's roofline() reads XLA's cost analysis instead,
         which counts the body of a lax.fori_loop once: its "track" covers
         one iteration plus the set-up, the same at any tracking.iters
-        (tests/test_torch_cost.py holds both), and its "map" one of the
-        chunk's iterations. This count is the work executed: it grows with
-        the iterations, so a rate divides it by the call's whole time."""
+        (tests/test_torch_cost.py holds both), and its "map" one of a
+        chunk's iterations, which its bench.py scales by mapping.iters /
+        chunk_iters. This count is the work executed: it grows with the
+        iterations, so a rate divides it by the frame's own time."""
         if self.mesh is not None:
             return {}
         out = {}
         launches = knn.KNN_SELECT_LAUNCHES.count
         try:
-            for name, kept in self._roofline_calls.items():
-                cc = self._count_call(kept)
-                knn_flops, knn_bytes = cc.reported.get("knn_select", (0, 0))
-                out[name] = {"flops": cc.flops, "bytes": cc.bytes,
-                             "transcendentals": cc.transcendentals,
-                             "products": cc.products,
-                             "knn_flops": knn_flops, "knn_bytes": knn_bytes}
-                if "chunk_iters" in kept:
-                    out[name]["chunk_iters"] = kept["chunk_iters"]
+            track = self._roofline_calls.get("track")
+            if track is not None:
+                out["track"] = {**self._counts(track), "idx": track["idx"],
+                                "seconds": track.get("seconds")}
+            frame = self._roofline_calls.get("map")
+            if frame is not None:
+                out["map"] = self._frame_counts(frame)
         finally:
             knn.KNN_SELECT_LAUNCHES.count = launches
         return out
+
+    def _counts(self, kept) -> Dict:
+        """A kept call's counts (roofline()'s keys)."""
+        cc = self._count_call(kept)
+        knn_flops, knn_bytes = cc.reported.get("knn_select", (0, 0))
+        return {"flops": cc.flops, "bytes": cc.bytes,
+                "transcendentals": cc.transcendentals,
+                "products": cc.products, "knn_flops": knn_flops,
+                "knn_bytes": knn_bytes,
+                "unclassified": sorted(cc.unclassified)}
+
+    def _frame_counts(self, frame) -> Dict:
+        """A kept mapped frame's count: each stage's chunk scaled by the
+        stage's iterations over the chunk's (roofline()'s "map")."""
+        C = frame["chunk_iters"]
+        chunks = {s: self._counts(frame["chunks"][s])
+                  for s in ("geo", "col") if s in frame["chunks"]}
+        n = {"geo": frame["n_geo"], "col": frame["n_col"]}
+        res = {key: round(sum(c[key] * n[s] for s, c in chunks.items()) / C)
+               for key in ("flops", "bytes", "transcendentals", "products",
+                           "knn_flops", "knn_bytes")}
+        res["unclassified"] = sorted({u for c in chunks.values()
+                                      for u in c["unclassified"]})
+        for key in ("n_geo", "n_col", "chunk_iters", "idx"):
+            res[key] = frame[key]
+        res["seconds"] = frame.get("seconds")
+        res["geo_chunk"] = chunks.get("geo")
+        res["col_chunk"] = chunks.get("col")
+        return res
 
     def _count_call(self, kept, tail=None) -> CostCounter:
         """Run a kept call (_keep_call) once more under a CostCounter, on a

@@ -1,20 +1,21 @@
 """Render-vs-ground-truth residual panels (port of
 loopy_slam_tpu/utils/visualizer.py).
 
-`Visualizer.vis` renders the frame through the current map and writes one
-image of six panels, as the JAX package's figure holds them:
+`Visualizer.vis_value_only` renders a frame through the current map and
+returns (depth, color); `Visualizer.vis` renders it so and writes one image
+of six panels, as the JAX package's figure holds them:
 
     input depth | rendered depth | depth residual
     input rgb   | rendered rgb   | rgb residual
 
 with the same value ranges (depth panels 0..max input depth, the depth
-residual 0..0.2 of it, the rgb residual 0..0.5) and the same gating
-(idx > 0 and idx % freq == 0). The JAX package draws the figure with
-matplotlib and saves a JPEG; the card's machine has no matplotlib (and no
-JPEG encoder), so the port tiles the panels in numpy, maps the scalar
-panels through a plasma-like colormap table, and writes a PNG with the
-port's own writer (utils/imageio.py). The `.png` name is the only difference
-in what is written; the panel titles of the figure are left out.
+residual 0..0.2 of it, the rgb residual 0..0.5), the same gating (idx > 0
+and idx % freq == 0) and the same file name, <idx:05d>_<iter:04d>.jpg. The
+JAX package draws the figure with matplotlib; the card's machine has no
+matplotlib, so the port tiles the panels in numpy, maps the scalar panels
+through a plasma-like colormap table, and writes a baseline JPEG with the
+port's own encoder (utils/imageio.write_jpeg, quality JPEG_QUALITY). The
+figure's panel titles and margins are left out.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ import os
 
 import numpy as np
 
-from .imageio import write_png
+from .imageio import write_jpeg
+
+# the panels' JPEG quality (write_jpeg's scale of the standard tables)
+JPEG_QUALITY = 95
 
 # plasma anchors (position, r, g, b), linearly interpolated to 256 entries
 _PLASMA_ANCHORS = np.array([
@@ -76,18 +80,24 @@ class Visualizer:
         self.verbose = verbose
         os.makedirs(vis_dir, exist_ok=True)
 
+    def vis_value_only(self, c2w, gt_depth, r_query_map=None):
+        """Full-frame render through the current map (no image): numpy
+        (depth (H, W), color (H, W, 3)), as slam.render_img returns them."""
+        return self.slam.render_img(c2w, gt_depth, r_query_map=r_query_map)
+
     def vis(self, idx: int, iter_: int, gt_depth, gt_color, c2w,
             r_query_map=None, freq_override: bool = False,
             save_rendered_image: bool = False):
         """Render frame idx at c2w (with the frame's query-radius map,
-        if the session has one) and write <idx>_<iter>.png; returns
+        if the session has one) and write <idx>_<iter>.jpg; returns
         (depth, color), or None when the gate does not fire."""
         if not freq_override and (idx == 0 or idx % self.freq != 0):
             return None
-        depth, color = self.slam.render_img(c2w, gt_depth,
-                                            r_query_map=r_query_map)
-        path = os.path.join(self.vis_dir, f"{idx:05d}_{iter_:04d}.png")
-        write_png(path, six_panels(gt_depth, depth, gt_color, color))
+        depth, color = self.vis_value_only(c2w, gt_depth,
+                                           r_query_map=r_query_map)
+        path = os.path.join(self.vis_dir, f"{idx:05d}_{iter_:04d}.jpg")
+        write_jpeg(path, six_panels(gt_depth, depth, gt_color, color),
+                   JPEG_QUALITY)
         if save_rendered_image:
             np.save(os.path.join(self.vis_dir, f"color_{idx:05d}.npy"),
                     np.clip(color, 0, 1))

@@ -321,9 +321,10 @@ def _tiny_cfg(out, frames=3, chunk=16, **over):
 
 @pytest.fixture(scope="module")
 def session(tmp_path_factory):
-    """A tiny 3-frame session with 16-iteration chunks (frame 2 is tracked
-    and mapped in full chunks), run with LOOPY_PROGRESS unset; its stderr
-    is kept as `stderr_text`."""
+    """A tiny 3-frame session with 8-iteration chunks (frame 2 is tracked
+    and mapped, each stage in full chunks and a partial one), run with
+    LOOPY_PROGRESS unset; its stderr is kept as `stderr_text`, and the
+    count of every mapping chunk it ran, as it ran, as `chunk_counts`."""
     import contextlib
     import io
 
@@ -333,11 +334,37 @@ def session(tmp_path_factory):
     err = io.StringIO()
     with cpu_settings(), contextlib.redirect_stderr(err):
         os.environ.pop("LOOPY_PROGRESS", None)
-        slam = LoopySLAM(_tiny_cfg(out), device="cpu")
+        slam = LoopySLAM(_tiny_cfg(out, chunk=8), device="cpu")
+        _count_every_chunk(slam)
         slam.run()
         slam.close()
     slam.stderr_text = err.getvalue()
     return slam
+
+
+def _count_every_chunk(slam):
+    """Count each optimize_map chunk of the session as it runs, with the
+    frame it belongs to, into slam.chunk_counts."""
+    slam.chunk_counts = []
+    frame = {}
+    map_frame, optimize = slam.map_frame, slam._optimize
+
+    def counted_map_frame(idx, *args, **kw):
+        frame["idx"] = idx
+        return map_frame(idx, *args, **kw)
+
+    def counted_optimize(*args, **kw):
+        with CostCounter() as cc:
+            out = optimize(*args, **kw)
+        n_geo, n_col = args[7], args[8]
+        knn_flops, knn_bytes = cc.reported.get("knn_select", (0, 0))
+        slam.chunk_counts.append(dict(
+            idx=frame["idx"], n_geo=n_geo, n_col=n_col, flops=cc.flops,
+            bytes=cc.bytes, transcendentals=cc.transcendentals,
+            products=cc.products, knn_flops=knn_flops, knn_bytes=knn_bytes))
+        return out
+
+    slam.map_frame, slam._optimize = counted_map_frame, counted_optimize
 
 
 def test_track_count_is_linear_in_iters(session):
@@ -438,20 +465,117 @@ def test_roofline_keys_and_session_left_as_it_was(session, monkeypatch):
     assert set(rl) == {"track", "map"}
     for name in rl:
         assert {"flops", "bytes", "transcendentals", "products",
-                "knn_flops", "knn_bytes"} <= set(rl[name])
+                "knn_flops", "knn_bytes", "unclassified", "idx",
+                "seconds"} <= set(rl[name])
         assert rl[name]["flops"] > rl[name]["products"] > 0
         assert rl[name]["bytes"] > rl[name]["knn_bytes"] > 0
-    assert rl["map"]["chunk_iters"] == 16
+        # the counted frame is the last, timed in run()
+        assert rl[name]["idx"] == 2
+        assert rl[name]["seconds"] == session.timings[name][-1] > 0
+    assert rl["map"]["chunk_iters"] == 8
     # the k-NN part is query_cost of the pool builds: the tracker's warm-up
-    # blocks, then the chunk's one pool
+    # blocks, then the geometry chunk's and the color chunk's one pool each
     topts = session.topts
     n_track = len(ttr.warmup_blocks(topts.iters, topts.knn_refresh))
-    assert len(calls) == n_track + 1
-    for name, part in (("track", calls[:n_track]), ("map", calls[n_track:])):
+    assert len(calls) == n_track + 2
+    parts = ((rl["track"], calls[:n_track]),
+             (rl["map"]["geo_chunk"], calls[n_track:n_track + 1]),
+             (rl["map"]["col_chunk"], calls[n_track + 1:]))
+    for counts, part in parts:
         cost = [tknn.query_cost(g, q, k, isinstance(r, torch.Tensor)
                                 and r.dim() == 1) for g, q, k, r in part]
-        assert rl[name]["knn_bytes"] == sum(c[0] for c in cost)
-        assert rl[name]["knn_flops"] == sum(c[1] for c in cost)
+        assert counts["knn_bytes"] == sum(c[0] for c in cost)
+        assert counts["knn_flops"] == sum(c[1] for c in cost)
+
+
+# roofline()["map"] (two chunks scaled by their stages' iterations) against
+# the count of every chunk of the same frame: the scaling counts a stage's
+# pool build in proportion to its iterations, where the frame builds one a
+# chunk, a partial chunk included
+MAP_FRAME_RTOL = 0.01
+
+
+def _map_against_every_chunk(slam):
+    """roofline()["map"] and the chunks of its frame as they ran, after
+    holding the scaled sum against their total and each kept chunk equal
+    to the last full chunk of its stage."""
+    rl = slam.roofline()["map"]
+    chunks = [c for c in slam.chunk_counts if c["idx"] == rl["idx"]]
+    C = rl["chunk_iters"]
+    assert rl["n_geo"] == sum(c["n_geo"] for c in chunks) > C
+    assert rl["n_col"] == sum(c["n_col"] for c in chunks) > C
+    for key in ("flops", "bytes", "transcendentals", "products"):
+        total = sum(c[key] for c in chunks)
+        print(f"{key}: two chunks scaled {rl[key]}, every chunk {total}, "
+              f"{(rl[key] - total) / total:+.4%}")
+        assert abs(rl[key] - total) <= MAP_FRAME_RTOL * total, (
+            key, rl[key], total)
+    # each kept chunk is a full one of its stage, counted as it ran
+    full = {("geo" if c["n_geo"] else "col"): c for c in chunks
+            if c["n_geo"] + c["n_col"] == C}
+    for stage in ("geo", "col"):
+        for key in ("flops", "bytes", "products"):
+            assert rl[f"{stage}_chunk"][key] == full[stage][key], (stage,
+                                                                   key)
+    return rl, chunks
+
+
+def test_roofline_map_is_one_whole_mapped_frame(session):
+    rl, chunks = _map_against_every_chunk(session)
+    # the frame ran full chunks and a partial one: the scaling is at work
+    assert any(c["n_geo"] + c["n_col"] < rl["chunk_iters"] for c in chunks)
+    # the geometry stage runs no color decode, loss or backward
+    assert rl["geo_chunk"]["flops"] < rl["col_chunk"]["flops"]
+    assert rl["geo_chunk"]["products"] < rl["col_chunk"]["products"]
+
+
+@pytest.fixture(scope="module")
+def ba_session(tmp_path_factory):
+    """A tiny 6-frame session with bundle adjustment, every frame mapped
+    and a keyframe (so frame 5's window holds more than 4 keyframes and BA
+    trains its poses), 16 iterations a frame (15 to 32 with the clip) in
+    4-iteration chunks, each counted as it ran."""
+    from torch_cpu import cpu_settings
+
+    out = tmp_path_factory.mktemp("cost_ba_session")
+    with cpu_settings():
+        slam = LoopySLAM(_tiny_cfg(out, frames=6, chunk=4, mapping={
+            "BA": True, "every_frame": 1, "keyframe_every": 1,
+            "iters": 16}), device="cpu")
+        _count_every_chunk(slam)
+        slam.run()
+        slam.close()
+    return slam
+
+
+def test_roofline_map_counts_a_bundle_adjusted_frame(ba_session):
+    """On a BA frame every chunk trains the window's poses: their forward
+    and backward run in each iteration, and BA's window only sets their
+    learning rate (0 outside it). So the kept color chunk, which lies after
+    the window, counts the same work as the chunk the window falls in, and
+    the scaled frame holds to the count of every chunk as a frame without
+    BA does."""
+    rl, chunks = _map_against_every_chunk(ba_session)
+    assert rl["idx"] in ba_session.ba_frames
+    m = ba_session.cfg["mapping"]
+    num = rl["n_geo"] + rl["n_col"]
+    lo = num * (m["geo_iter_ratio"] + 0.2)
+    # BA's window starts in the first full color chunk; the kept chunk is
+    # the last full one, after it
+    C = rl["chunk_iters"]
+    col_starts = [rl["n_geo"] + i * C for i in range(rl["n_col"] // C)]
+    assert col_starts[0] <= lo < col_starts[0] + C <= col_starts[-1]
+    # every chunk builds the window's rays from the poses and runs its own
+    # k-NN each iteration (no ray pool): the products are the same, the
+    # k-NN's filled slots move with the poses
+    full_col = [c for c in chunks if c["n_col"] == C]
+    assert len(full_col) >= 2
+    first, kept = full_col[0], full_col[-1]
+    print("first and kept color chunk:", {k: (first[k], kept[k]) for k in (
+        "flops", "knn_flops", "bytes", "knn_bytes", "products")})
+    assert first["products"] == kept["products"]
+    assert first["flops"] - first["knn_flops"] == (kept["flops"]
+                                                   - kept["knn_flops"])
 
 
 def test_roofline_map_only_after_a_full_chunk(tmp_path, capfd):

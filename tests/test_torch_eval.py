@@ -43,6 +43,7 @@ from loopy_slam_torch.utils import io as tio
 from loopy_slam_torch.utils import lpips as tlpips
 from loopy_slam_torch.utils import metrics as tmetrics
 from loopy_slam_torch.utils import visualizer as tvis
+from loopy_slam_torch.utils.imageio import read_jpeg, write_png
 from loopy_slam_tpu.native.build import raster_mesh_depth as j_raster
 from loopy_slam_tpu.ops import raster as jraster
 from loopy_slam_tpu.ops import tsdf as jtsdf
@@ -54,6 +55,7 @@ from loopy_slam_tpu.tools import get_mesh_tsdf_fusion as jfusion
 from loopy_slam_tpu.utils import datasets as jdatasets
 from loopy_slam_tpu.utils import io as jio
 from loopy_slam_tpu.utils import metrics as jmetrics
+from loopy_slam_tpu.utils import visualizer as jvis
 from torch_cpu import read_png
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -390,7 +392,7 @@ def test_png_round_trip_and_six_panels(tmp_path):
     panels = tvis.six_panels(d_ref, depth, ref, img)
     assert panels.shape == (60, 120, 3) and panels.dtype == np.uint8
     path = str(tmp_path / "p.png")
-    tvis.write_png(path, panels)
+    write_png(path, panels)
     np.testing.assert_array_equal(read_png(path), panels)
     # the input-rgb panel is the clipped input
     np.testing.assert_array_equal(
@@ -410,6 +412,14 @@ class _FakeSession:
         return self.out
 
 
+def _cv2_jpeg_round_trip(path, rgb, quality):
+    """cv2's JPEG of rgb at quality, decoded by cv2, as RGB."""
+    import cv2
+
+    cv2.imwrite(path, rgb[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, quality])
+    return cv2.imread(path)[..., ::-1]
+
+
 def test_visualizer_gate_and_rendered_image_dumps(tmp_path):
     img, ref, depth, d_ref = _images(9, 30, 40)
     fake = _FakeSession(depth, img)
@@ -421,10 +431,52 @@ def test_visualizer_gate_and_rendered_image_dumps(tmp_path):
     assert out is not None and fake.calls == 1
     assert vis.vis(3, 9, d_ref, ref, np.eye(4), freq_override=True)
     assert sorted(os.listdir(tmp_path / "vis")) == [
-        "00003_0009.png", "00010_0009.png", "color_00010.npy",
+        "00003_0009.jpg", "00010_0009.jpg", "color_00010.npy",
         "depth_00010.npy"]
+    # the six panels through the JPEG codec exactly as OpenCV's: the
+    # file decodes to what cv2 decodes from its own file at the quality
     np.testing.assert_array_equal(
-        read_png(str(tmp_path / "vis" / "00010_0009.png")),
-        tvis.six_panels(d_ref, depth, ref, img))
+        read_jpeg(str(tmp_path / "vis" / "00010_0009.jpg")),
+        _cv2_jpeg_round_trip(str(tmp_path / "cv2.jpg"),
+                             tvis.six_panels(d_ref, depth, ref, img),
+                             tvis.JPEG_QUALITY))
     np.testing.assert_array_equal(np.load(tmp_path / "vis" / "color_00010.npy"),
                                   np.clip(img, 0, 1))
+
+
+def test_visualizer_writes_the_jax_packages_names(tmp_path):
+    """The same gate and the same file names as the JAX package's
+    Visualizer (which draws a matplotlib figure into each file)."""
+    img, ref, depth, d_ref = _images(10, 30, 40)
+    names = {}
+    for name, mod in (("port", tvis), ("jax", jvis)):
+        vis = mod.Visualizer(5, str(tmp_path / name),
+                             _FakeSession(depth, img), verbose=False)
+        fired = [vis.vis(idx, it, d_ref, ref, np.eye(4)) is not None
+                 for idx, it in ((0, 9), (7, 39), (10, 9), (125, 299))]
+        assert vis.vis(3, 0, d_ref, ref, np.eye(4), freq_override=True)
+        names[name] = (fired, sorted(os.listdir(tmp_path / name)))
+    assert names["port"] == names["jax"] == (
+        [False, False, True, True],
+        ["00003_0000.jpg", "00010_0009.jpg", "00125_0299.jpg"])
+
+
+# the decoded panels of a synthetic-room frame against six_panels: JPEG
+# 4:2:0 at JPEG_QUALITY loses most at the residual panels' noise and the
+# panels' seams (30.2 dB on this frame, 33.3 dB at room.yaml's 340x600)
+JPEG_MIN_PSNR_DB = 25.0
+
+
+def test_visualizer_jpeg_holds_six_panels(tmp_path):
+    _, color, gt_depth, _ = _room()[2][1]
+    rng = np.random.default_rng(0)
+    depth = gt_depth * (1 + rng.normal(0, 0.01, gt_depth.shape))
+    rendered = np.clip(color + rng.normal(0, 0.03, color.shape), 0, 1)
+    vis = tvis.Visualizer(1, str(tmp_path), _FakeSession(depth, rendered),
+                          verbose=False)
+    vis.vis(1, 0, gt_depth, color, np.eye(4))
+    got = read_jpeg(str(tmp_path / "00001_0000.jpg")).astype(np.float64)
+    want = tvis.six_panels(gt_depth, depth, color, rendered)
+    assert got.shape == want.shape == (120, 240, 3)
+    mse = np.mean((got - want) ** 2)
+    assert 10 * np.log10(255.0 ** 2 / mse) >= JPEG_MIN_PSNR_DB

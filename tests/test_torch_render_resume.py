@@ -31,14 +31,16 @@ from loopy_slam_torch.config import load_config as tload
 from loopy_slam_torch.convert import decoders_from_numpy, map_state_from_numpy
 from loopy_slam_torch.ops.draws import ReplayDraws
 from loopy_slam_torch.slam import LoopySLAM
+from loopy_slam_torch.utils.imageio import read_jpeg
 from loopy_slam_torch.utils.io import load_checkpoint
+from loopy_slam_torch.utils.visualizer import Visualizer
 from loopy_slam_tpu import slam as jslam_mod
 from loopy_slam_tpu.config import load_config as jload
 from loopy_slam_tpu.mapping import mapper as jmapper
 from loopy_slam_tpu.models import decoder as jdec
 from loopy_slam_tpu.tools import eval_images as jimages
 from loopy_slam_tpu.tools import eval_recon as jrecon
-from torch_cpu import cpu_settings, read_png
+from torch_cpu import cpu_settings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOM = os.path.join(ROOT, "configs", "Synthetic", "room.yaml")
@@ -90,7 +92,7 @@ def sessions(tmp_path_factory):
         stopped = trun.main([cli_path, "--device", "cpu", "--stop",
                              str(STOP)])
         resumed = trun.main([cli_path, "--device", "cpu", "--resume"])
-    return dict(straight=straight, out_c=out_c, stopped=stopped,
+    return dict(straight=straight, slam=slam, out_c=out_c, stopped=stopped,
                 resumed=resumed)
 
 
@@ -150,13 +152,30 @@ def test_visualizer_pngs_decode_to_six_panels(sessions):
     # frame 4, in the resumed run: tracked (12 iterations) and mapped (30)
     names = {d: sorted(os.listdir(out / d))
              for d in ("tracking_vis", "mapping_vis")}
-    assert names == {"tracking_vis": ["00004_0011.png"],
-                     "mapping_vis": ["00004_0029.png"]}
-    img = read_png(str(out / "tracking_vis" / "00004_0011.png"))
-    assert img.shape == (2 * 60, 3 * 80, 3)
-    assert img.std() > 10  # not a blank image
+    assert names == {"tracking_vis": ["00004_0011.jpg"],
+                     "mapping_vis": ["00004_0029.jpg"]}
+    for name in ("tracking_vis/00004_0011.jpg", "mapping_vis/00004_0029.jpg"):
+        img = read_jpeg(str(out / name))
+        assert img.shape == (2 * 60, 3 * 80, 3)
+        assert img.std() > 10  # not a blank image
     vis = sessions["resumed"]["timings_s"]["vis"]
     assert len(vis) == 2 and min(vis) > 0
+
+
+def test_vis_value_only_is_render_img(sessions, tmp_path):
+    """The visualizer's render is the session's render_img, bit for bit,
+    from the same draw state."""
+    slam = sessions["slam"]
+    idx = N_FRAMES - 1
+    _, _, depth, _ = slam.dataset[idx]
+    c2w = slam.estimate_c2w[idx]
+    state = slam.draw.gen.get_state()
+    want = slam.render_img(c2w, depth)
+    slam.draw.gen.set_state(state)
+    got = Visualizer(1, str(tmp_path), slam).vis_value_only(c2w, depth)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert np.abs(want[0]).max() > 0  # a rendered frame, not blank
 
 
 # ---------------------------------------------------------------------------

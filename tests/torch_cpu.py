@@ -1,5 +1,5 @@
 """CPU settings shared by the port's heavier parity tests, and a reader of
-the visualizer's PNGs."""
+the uncompressed RGB PNGs the port's write_png writes."""
 
 import contextlib
 import struct
@@ -36,7 +36,7 @@ def torch_cpu():
 
 
 def read_png(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 of a PNG written by write_png."""
+    """(H, W, 3) uint8 of a PNG written by utils/imageio.write_png."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":

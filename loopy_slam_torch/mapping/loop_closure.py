@@ -41,6 +41,7 @@ import torch
 from .. import resolve_device
 from ..ops import registration as reg
 from ..ops.pose_graph import PoseGraph, optimize
+from ..utils import telemetry
 from . import place_recognition as pr
 from .fragments import FragmentManager
 
@@ -88,6 +89,34 @@ class LoopClosureConfig:
 from ._reg_worker import register_one as _register_one  # noqa: E402
 
 
+def _register_all(jobs, n_jobs: int) -> List[Dict]:
+    """register_one over the jobs, in a pool of spawned workers where
+    there is real parallelism."""
+    # pool only pays when real parallelism exists: each spawned worker
+    # costs a full interpreter + module imports (~1 min CPU), so on a
+    # 1-CPU host an 8-way pool turns a seconds-long registration batch
+    # into a >10-minute stall. Cap by available cores and job count.
+    n_workers = min(n_jobs, os.cpu_count() or 1, len(jobs))
+    if n_workers > 1 and len(jobs) > 2:
+        # spawn, not fork: the parent holds a CUDA context and torch
+        # threads. Unlike the JAX package, no environment scrub is
+        # needed: the workers import no accelerator runtime. A failed
+        # pool (a worker killed, a host without semaphores) falls back
+        # to registering in this process: the same host code makes the
+        # same edges, so the fallback hides no device.
+        import multiprocessing as _mp
+
+        try:
+            with ProcessPoolExecutor(
+                    max_workers=n_workers,
+                    mp_context=_mp.get_context("spawn")) as ex:
+                return list(ex.map(_register_one, jobs))
+        except Exception as e:
+            print(f"registration pool failed ({type(e).__name__}); "
+                  "falling back to in-process registration")
+    return [_register_one(j) for j in jobs]
+
+
 class LoopCloser:
     def __init__(self, cfg: LoopClosureConfig, fm: FragmentManager,
                  device=None):
@@ -120,8 +149,6 @@ class LoopCloser:
     def compute_correction(self) -> Optional[np.ndarray]:
         """Returns per-fragment 4x4 correction transforms (F, 4, 4) for ALL
         fragments (the newest reuses its predecessor's), or None."""
-        import time
-
         fm = self.fm
         cfg = self.cfg
         frags = fm.fragments[:-1]  # use_old_segments_only=True
@@ -169,33 +196,11 @@ class LoopCloser:
                  "identity" if s + 1 == t else cfg.registration_method,
                  cfg.global_iter, cfg.conf, 1000 + 13 * s + t)
                 for (s, t) in pairs]
-        tic = time.perf_counter()
-        # pool only pays when real parallelism exists: each spawned worker
-        # costs a full interpreter + module imports (~1 min CPU), so on a
-        # 1-CPU host an 8-way pool turns a seconds-long registration batch
-        # into a >10-minute stall. Cap by available cores and job count.
-        n_workers = min(cfg.n_jobs, os.cpu_count() or 1, len(jobs))
-        if n_workers > 1 and len(jobs) > 2:
-            # spawn, not fork: the parent holds a CUDA context and torch
-            # threads. Unlike the JAX package, no environment scrub is
-            # needed: the workers import no accelerator runtime. A failed
-            # pool (a worker killed, a host without semaphores) falls back
-            # to registering in this process: the same host code makes the
-            # same edges, so the fallback hides no device.
-            import multiprocessing as _mp
-
-            try:
-                with ProcessPoolExecutor(
-                        max_workers=n_workers,
-                        mp_context=_mp.get_context("spawn")) as ex:
-                    results = list(ex.map(_register_one, jobs))
-            except Exception as e:
-                print(f"registration pool failed ({type(e).__name__}); "
-                      "falling back to in-process registration")
-                results = [_register_one(j) for j in jobs]
-        else:
-            results = [_register_one(j) for j in jobs]
-        self.registration_times.append(time.perf_counter() - tic)
+        tr = telemetry.current()
+        seg = len(fm.fragments) - 1
+        with tr.span("lc.register", seg=seg, pairs=len(jobs),
+                     record=self.registration_times.append):
+            results = _register_all(jobs, cfg.n_jobs)
 
         edges = []  # (s, t, T, info, certain, fitness, transl_mag, success)
         for (s, t), out in zip(pairs, results):
@@ -279,11 +284,10 @@ class LoopCloser:
                 [reg.info_o3d_to_rho_phi(e["info"]) for e in accepted])
                 .astype(np.float32), device=dev),
             certain=torch.tensor([e["odom"] for e in accepted], device=dev))
-        tic = time.perf_counter()
-        solved, _ = optimize(g, preference_loop_closure=cfg.lc_pref,
-                                   max_iters=40)
-        solved = solved.cpu().numpy()
-        self.pgo_times.append(time.perf_counter() - tic)
+        with tr.span("lc.pgo", seg=seg, record=self.pgo_times.append):
+            solved, _ = optimize(g, preference_loop_closure=cfg.lc_pref,
+                                 max_iters=40)
+            solved = solved.cpu().numpy()
 
         # sanity gate: a diverged solve must never be applied — corrections
         # are small rigid nudges, not teleports

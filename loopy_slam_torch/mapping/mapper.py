@@ -46,6 +46,7 @@ from ..ops.compositing import composite
 from ..ops.image import bilinear_sample
 from ..ops.masked import masked_max, masked_median
 from ..ops.sampling import sample_rays, surface_z_vals
+from ..utils import telemetry
 from .point_cloud import MapOptions, MapState, add_points
 
 
@@ -389,10 +390,12 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
     use_pool = (opts.pixel_pool_factor > 0 and not ropts.sample_near_pcl
                 and cams is None and eval_fn_builder is None)
     pool = None
+    tr = telemetry.current()
     if use_pool:
-        pool = _build_pool(map_pos, grid, kf_color, kf_depth, kf_c2w, kf_rq,
-                           draw, opts, ropts,
-                           opts.pixel_pool_factor * pix_per_frame)
+        with tr.span("map.pool"):
+            pool = _build_pool(map_pos, grid, kf_color, kf_depth, kf_c2w,
+                               kf_rq, draw, opts, ropts,
+                               opts.pixel_pool_factor * pix_per_frame)
     aux = (torch.zeros((), device=feat.device),) * 3
     it = iter_offset
     for stage, n_iters, lrs in (("geometry", n_geo_iters, lrs_geo),
@@ -403,45 +406,49 @@ def _optimize_map_impl(dec, feat, adam_state, dec_mask: Dict[str, bool],
                              torch.full((c,), float(lrs[2]))]).to(feat.device)
         lr_list = [float(lrs[0])] * len(params) + [lr_feat] \
             + ([0.001] if with_exp else [])
-        for _ in range(n_iters):
-            feat_v = feat.detach().requires_grad_(True)
-            exp_v = [e.detach().requires_grad_(True) for e in extra]
-            exposure = (kf_exposure, exp_v[0]) if with_exp else None
-            if pool_this_stage:
-                loss, aux = _map_loss_pool(dec, feat_v, pool, map_pos, draw,
-                                           stage, opts, ropts, pix_per_frame,
-                                           exposure)
-            else:
-                c2w = kf_c2w if cams is None else c2w_from_tensor(exp_v[-1])
-                eval_fn = (None if eval_fn_builder is None
-                           else eval_fn_builder(dec, feat_v))
-                loss, aux = _map_loss(dec, feat_v, map_pos, grid, kf_color,
-                                      kf_depth, c2w, kf_rq, draw, stage,
-                                      opts, ropts, pix_per_frame, exposure,
-                                      eval_fn)
-            grads = torch.autograd.grad(loss, params + [feat_v] + exp_v,
-                                        allow_unused=True)
-            n = len(params)
-            if mesh is not None:
-                grads, aux = _psum_grads(mesh, grads, params + [feat_v]
-                                         + exp_v, n, feat_grad_local, aux)
-            grads = [g if (on and g is not None) else None
-                     for g, on in zip(grads[:n], dec_on)] \
-                + [grads[n] * fm if grads[n] is not None else None] \
-                + list(grads[n + 1:])
-            lrs_it = lr_list
-            if cams is not None:
-                in_win = float(win[0] <= it < win[1])
-                lrs_it = lr_list + [ba_lr * in_win * ba_rows]
-            with torch.no_grad():
-                new, adam_state = adam.update(
-                    [p.detach() for p in params] + [feat_v.detach()]
-                    + [e.detach() for e in exp_v], grads, adam_state,
-                    lrs_it)
-                for p, q in zip(params, new[:n]):
-                    p.copy_(q)
-                feat = new[n]
-                extra = new[n + 1:]
+        for i in range(n_iters):
+            with tr.span("map.iter", stage=stage, it=i):
+                feat_v = feat.detach().requires_grad_(True)
+                exp_v = [e.detach().requires_grad_(True) for e in extra]
+                exposure = (kf_exposure, exp_v[0]) if with_exp else None
+                with tr.span("map.fwd"):
+                    if pool_this_stage:
+                        loss, aux = _map_loss_pool(
+                            dec, feat_v, pool, map_pos, draw, stage, opts,
+                            ropts, pix_per_frame, exposure)
+                    else:
+                        c2w = (kf_c2w if cams is None
+                               else c2w_from_tensor(exp_v[-1]))
+                        eval_fn = (None if eval_fn_builder is None
+                                   else eval_fn_builder(dec, feat_v))
+                        loss, aux = _map_loss(
+                            dec, feat_v, map_pos, grid, kf_color, kf_depth,
+                            c2w, kf_rq, draw, stage, opts, ropts,
+                            pix_per_frame, exposure, eval_fn)
+                with tr.span("map.bwd"):
+                    grads = torch.autograd.grad(
+                        loss, params + [feat_v] + exp_v, allow_unused=True)
+                n = len(params)
+                if mesh is not None:
+                    grads, aux = _psum_grads(mesh, grads, params + [feat_v]
+                                             + exp_v, n, feat_grad_local, aux)
+                grads = [g if (on and g is not None) else None
+                         for g, on in zip(grads[:n], dec_on)] \
+                    + [grads[n] * fm if grads[n] is not None else None] \
+                    + list(grads[n + 1:])
+                lrs_it = lr_list
+                if cams is not None:
+                    in_win = float(win[0] <= it < win[1])
+                    lrs_it = lr_list + [ba_lr * in_win * ba_rows]
+                with torch.no_grad(), tr.span("map.adam"):
+                    new, adam_state = adam.update(
+                        [p.detach() for p in params] + [feat_v.detach()]
+                        + [e.detach() for e in exp_v], grads, adam_state,
+                        lrs_it)
+                    for p, q in zip(params, new[:n]):
+                        p.copy_(q)
+                    feat = new[n]
+                    extra = new[n + 1:]
             it += 1
     return (feat, adam_state, aux, *extra)
 

@@ -40,6 +40,7 @@ from ..ops.compositing import composite
 from ..ops.masked import masked_mean, masked_median
 from ..ops.sampling import (inside_mask_from_depth, sample_pixels,
                             surface_z_vals)
+from ..utils import telemetry
 
 
 class TrackOptions(NamedTuple):
@@ -325,18 +326,23 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
     eval_fn = (None if eval_fn_builder is None
                else eval_fn_builder(dec, feats))
 
+    tr = telemetry.current()
+
     def step(loss_fn):
         nonlocal cam, extra, st, best_loss, best_cam, best_nm
         vs = [v.requires_grad_(True) for v in [cam] + extra]
         exposure = ((vs[1], ExposureMLP(*vs[2:])) if extra else None)
-        loss, aux = loss_fn(vs[0], exposure)
-        grads = torch.autograd.grad(loss, vs)
+        with tr.span("track.fwd"):
+            loss, aux = loss_fn(vs[0], exposure)
+        with tr.span("track.bwd"):
+            grads = torch.autograd.grad(loss, vs)
         loss = loss.detach()
         if mesh is not None:
             *grads, loss, n_mask = mesh.psum(
                 list(grads) + [loss, aux[2].float()])
             aux = (aux[0], aux[1], n_mask)
-        new, st = adam.update([v.detach() for v in vs], grads, st, lrs)
+        with tr.span("track.adam"):
+            new, st = adam.update([v.detach() for v in vs], grads, st, lrs)
         cam, extra = new[0], new[1:]
         better = loss < best_loss
         best_loss = torch.where(better, loss, best_loss)
@@ -347,21 +353,23 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
     n_done = 0
     if use_cache:
         for blk_len in warmup_blocks(opts.iters, opts.knn_refresh):
-            with torch.no_grad():
+            with torch.no_grad(), tr.span("track.pool", size=blk_len):
                 cache = _build_track_cache(
                     cam, map_pos, grid, feats, gt_color, gt_depth, draw,
                     opts, ropts, sel_i, sel_j, r_query)
             for _ in range(blk_len):
-                loss = step(lambda c7, ex: tracking_loss_cached(
-                    c7, dec, cache, draw, opts, ropts, ex))
+                with tr.span("track.iter", it=n_done):
+                    loss = step(lambda c7, ex: tracking_loss_cached(
+                        c7, dec, cache, draw, opts, ropts, ex))
                 if n_done == 0:
                     first_loss = loss
                 n_done += 1
     else:
         for _ in range(opts.iters):
-            loss = step(lambda c7, ex: tracking_loss(
-                c7, dec, map_pos, grid, feats, gt_color, gt_depth, draw,
-                opts, ropts, sel_i, sel_j, r_query, ex, eval_fn))
+            with tr.span("track.iter", it=n_done):
+                loss = step(lambda c7, ex: tracking_loss(
+                    c7, dec, map_pos, grid, feats, gt_color, gt_depth, draw,
+                    opts, ropts, sel_i, sel_j, r_query, ex, eval_fn))
             if n_done == 0:
                 first_loss = loss
             n_done += 1
@@ -370,10 +378,11 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
     if health is None:
         health_out = torch.zeros(3, device=dev)
     else:
-        out_cam, health_out = _apply_health_gate(
-            health, best_loss, best_nm, cam7_init, best_cam, opts,
-            total_px=float(opts.pixels
-                           * (1 if mesh is None else mesh.size())))
+        with tr.span("track.gate"):
+            out_cam, health_out = _apply_health_gate(
+                health, best_loss, best_nm, cam7_init, best_cam, opts,
+                total_px=float(opts.pixels
+                               * (1 if mesh is None else mesh.size())))
     with torch.no_grad():
         best_c2w44 = c2w_to_4x4(c2w_from_tensor(out_cam))
     return TrackResult(out_cam, best_c2w44, first_loss, best_loss,

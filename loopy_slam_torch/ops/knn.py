@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils import cost
+from ..utils import cost, telemetry
 
 # Large primes for 3-D spatial hashing (Teschner et al. 2003).
 _P1, _P2, _P3 = 73856093, 19349669, 83492791
@@ -368,16 +368,17 @@ def query_chunked(grid: HashGrid, points, queries, k: int, radius,
     no temporary, so it runs as one launch; on the CPU the plain version's
     (chunk, 27*M, 4) gather bounds its memory."""
     Q = queries.shape[0]
-    if queries.device.type != "cpu" or Q <= chunk:
-        return query(grid, points, queries, k, radius)
-    _report_cost(grid, queries, k, radius)
-    with cost.uncounted():
-        r = torch.as_tensor(radius, dtype=torch.float32,
-                            device=queries.device)
-        r = r.expand(Q) if r.dim() == 0 else r
-        outs = [_select(grid, queries[s:s + chunk], k, r[s:s + chunk])
-                for s in range(0, Q, chunk)]
-        return tuple(torch.cat(parts) for parts in zip(*outs))
+    with telemetry.current().span("knn.query", q=Q):
+        if queries.device.type != "cpu" or Q <= chunk:
+            return query(grid, points, queries, k, radius)
+        _report_cost(grid, queries, k, radius)
+        with cost.uncounted():
+            r = torch.as_tensor(radius, dtype=torch.float32,
+                                device=queries.device)
+            r = r.expand(Q) if r.dim() == 0 else r
+            outs = [_select(grid, queries[s:s + chunk], k, r[s:s + chunk])
+                    for s in range(0, Q, chunk)]
+            return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def brute_force_knn(points, valid, queries, k):

@@ -2,7 +2,7 @@
 
     python -m loopy_slam_torch.run configs/Synthetic/room.yaml
         [--output DIR] [--stop N] [--resume [CKPT]] [--device cuda|cpu]
-        [--wandb | --no_wandb]
+        [--wandb | --no_wandb] [--spans PATH]
 
 Runs tracking and mapping on the CUDA card (or the given device), prints
 the trajectory's ATE and, on a run that was not stopped early with
@@ -12,6 +12,9 @@ a .pkl path, or bare for the newest one in <output>/ckpts. The YAML files
 are read by the port's own reader (no PyYAML needed). `--wandb` and
 `--no_wandb` set the config's `wandb` (the losses go to wandb when it is
 set and wandb imports); without either the YAML's value stands.
+`--spans PATH` turns the session's tracer to its detail level
+(utils/telemetry.py) and appends each frame's spans to PATH, one JSON
+object a line, at the frame's end (rank 0's, on a mesh).
 
 With parallel.n_devices = n > 1 (ray data parallelism, or with
 parallel.map_shard the cell-sharded map) the session runs on n spawned
@@ -39,7 +42,8 @@ def latest_checkpoint(output: str) -> str:
     return cands[-1]
 
 
-def session(mesh, cfg, device=None, resume=None, after_run=None):
+def session(mesh, cfg, device=None, resume=None, after_run=None,
+            spans=None):
     """One session of the CLI on this rank (mesh None: the only one): run,
     score the trajectory and, on rank 0 of a finished run, the final
     evaluation. Returns main()'s statistics; on a mesh also `rank`: this
@@ -47,7 +51,7 @@ def session(mesh, cfg, device=None, resume=None, after_run=None):
     replicated_checksum), k-NN kernel launches during the run, shard
     count and collective times. after_run(slam), if given, is called on
     rank 0 with the finished session before it closes; its result goes
-    under "after_run"."""
+    under "after_run". spans: the path --spans writes to, or None."""
     import numpy as np
     import torch
 
@@ -60,6 +64,8 @@ def session(mesh, cfg, device=None, resume=None, after_run=None):
     torch.manual_seed(cfg["setup_seed"])
     slam = LoopySLAM(cfg, output=cfg["data"]["output"], device=device,
                      mesh=mesh)
+    if spans and slam.rank == 0:
+        slam.tracer.enable(path=spans)
     try:
         start_idx, resumed = 0, None
         if resume:
@@ -156,6 +162,9 @@ def main(argv=None, after_run=None):
     parser.add_argument("--wandb", dest="wandb", action="store_true")
     parser.add_argument("--no_wandb", dest="wandb", action="store_false")
     parser.set_defaults(wandb=None)
+    parser.add_argument("--spans", type=str, default=None,
+                        help="append the run's spans to this file as JSON "
+                             "lines, a frame at a time")
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config)
@@ -173,13 +182,15 @@ def main(argv=None, after_run=None):
 
     n = parallel_ranks(cfg)
     if n == 1:
-        return session(None, cfg, args.device, args.resume, after_run)
+        return session(None, cfg, args.device, args.resume, after_run,
+                       spans=args.spans)
     if after_run is not None:
         raise ValueError("after_run runs on one device only")
     # every rank runs the session; rank 0's statistics, with each rank's
     # own summary under "ranks"
     results = launch(session, n, cfg, args.device, args.resume,
-                     device=args.device, store_dir=os.path.join(cfg["data"]["output"], ".mesh"))
+                     device=args.device, store_dir=os.path.join(cfg["data"]["output"], ".mesh"),
+                     spans=args.spans)
     stats = results[0]
     stats["ranks"] = [r.pop("rank") for r in results]
     return stats

@@ -117,6 +117,7 @@ from .utils.datasets import get_dataset
 from .utils.cost import CostCounter
 from .utils.io import (load_checkpoint, save_checkpoint, write_ply_mesh,
                        write_ply_points)
+from .utils import telemetry
 from .utils.telemetry import WandbLogger
 from .utils.visualizer import Visualizer
 
@@ -312,6 +313,8 @@ class LoopySLAM:
         self.track_health = torch.zeros(3, device=self.device)
         self._last_rejects = 0.0
         self.timings: Dict[str, List[float]] = {"track": [], "map": []}
+        # the session's tracer (spans); its detail level is off until enable()
+        self.tracer = telemetry.Timers()
         # the last tracked frame's and the last full steady-state mapping
         # chunk's calls, for roofline()
         self._roofline_calls: Dict[str, Dict] = {}
@@ -485,15 +488,14 @@ class LoopySLAM:
               and self._prev_frame is not None):
             # direct RGB-D odometry from the previous frame as the motion
             # model; the one host read of the frame's odometry
-            t0 = time.perf_counter()
-            pc, pd = self._prev_frame
-            T = rgbd_odometry(pc, pd, color, depth,
-                              (self.fx, self.fy, self.cx, self.cy))
-            init_c2w = pre @ np.linalg.inv(T.cpu().numpy())
-            if self.mesh is not None:  # one motion model for every rank
-                init_c2w = self.mesh.broadcast_from_rank0(init_c2w)
-            self.timings.setdefault("odometry", []).append(
-                time.perf_counter() - t0)
+            with self.tracer.span("track.odometry", record=self.timings
+                                  .setdefault("odometry", []).append):
+                pc, pd = self._prev_frame
+                T = rgbd_odometry(pc, pd, color, depth,
+                                  (self.fx, self.fy, self.cx, self.cy))
+                init_c2w = pre @ np.linalg.inv(T.cpu().numpy())
+                if self.mesh is not None:  # one motion model for every rank
+                    init_c2w = self.mesh.broadcast_from_rank0(init_c2w)
         else:
             init_c2w = pre
         cam7 = torch.as_tensor(tensor_from_c2w(init_c2w), device=self.device)
@@ -518,35 +520,39 @@ class LoopySLAM:
             res = self._track_on_rank0(color, depth, cam7, kw)
         else:
             args = (s.pos, s.grid, s.feat, color, depth, cam7)
-            self._roofline_calls["track"] = dict(
-                self._keep_call(tracker_mod.track_frame, args,
-                                (self.topts, self.ropts_tracker), kw),
-                idx=idx)
+            with self.tracer.span("track.keep"):
+                self._roofline_calls["track"] = dict(
+                    self._keep_call(tracker_mod.track_frame, args,
+                                    (self.topts, self.ropts_tracker), kw),
+                    idx=idx)
             res = tracker_mod.track_frame(
                 self.dec, *args, self.draw, self.topts, self.ropts_tracker,
                 **kw)
-        first_loss, best_loss = res.first_loss, res.best_loss
-        self.track_health = res.health
-        if self.encode_exposure:
-            # the tracker co-optimized the latent and the exposure MLP;
-            # both are shared with the mapper
-            self.exposure_feat = res.exposure_feat
-            with torch.no_grad():
-                for name, v in res.exposure_mlp._asdict().items():
-                    getattr(self.dec.col.exposure, name).copy_(v)
-        if self.verbose:
-            print(f"idx:{idx}, re-rendering loss: "
-                  f"{float(first_loss):.2f}->{float(best_loss):.2f}")
-            th = self.track_health.cpu().numpy()
-            if th[1] > self._last_rejects:
-                self._last_rejects = th[1]
-                print(f"idx:{idx}, tracking health gate: pose update "
-                      f"REJECTED (total {int(th[1])}), kept motion-model "
-                      f"pose; loss ema {th[0]:.3f}")
-        if self.wandb.enabled:
-            self.wandb.log({"idx_track": idx,
-                            "tracking_loss": float(best_loss)})
-        return res.c2w44.cpu().numpy()
+        # the tail of the frame: the results into the session, and the
+        # host reads (the pose; the losses and the gate when verbose)
+        with self.tracer.span("track.readback"):
+            first_loss, best_loss = res.first_loss, res.best_loss
+            self.track_health = res.health
+            if self.encode_exposure:
+                # the tracker co-optimized the latent and the exposure MLP;
+                # both are shared with the mapper
+                self.exposure_feat = res.exposure_feat
+                with torch.no_grad():
+                    for name, v in res.exposure_mlp._asdict().items():
+                        getattr(self.dec.col.exposure, name).copy_(v)
+            if self.verbose:
+                print(f"idx:{idx}, re-rendering loss: "
+                      f"{float(first_loss):.2f}->{float(best_loss):.2f}")
+                th = self.track_health.cpu().numpy()
+                if th[1] > self._last_rejects:
+                    self._last_rejects = th[1]
+                    print(f"idx:{idx}, tracking health gate: pose update "
+                          f"REJECTED (total {int(th[1])}), kept "
+                          f"motion-model pose; loss ema {th[0]:.3f}")
+            if self.wandb.enabled:
+                self.wandb.log({"idx_track": idx,
+                                "tracking_loss": float(best_loss)})
+            return res.c2w44.cpu().numpy()
 
     def _track_on_rank0(self, color, depth, cam7, kw):
         """Ray-DP tracking: rank 0 tracks on its copy of the map and
@@ -773,17 +779,18 @@ class LoopySLAM:
                 hi = np.maximum(hi, t + r)
         if not np.isfinite(lo).all():
             lo, hi = np.array([-3.0] * 3), np.array([3.0] * 3)
-        t0 = time.perf_counter()
-        grid = tsdf.fuse_frames(frames, poses, self.fx, self.fy, self.cx,
-                                self.cy, voxel=self.registration_voxel,
-                                trunc=0.04, bounds=(lo, hi),
-                                fixed_dims=(192, 192, 192),
-                                device=self.device)
-        self._sync()
-        t1 = time.perf_counter()
-        verts, _faces, cols = tsdf.extract_mesh(grid)
-        self.seg_timings["tsdf_fuse"].append(t1 - t0)
-        self.seg_timings["extract_mesh"].append(time.perf_counter() - t1)
+        seg = len(self.fm.fragments) - 1
+        with self.tracer.span("lc.tsdf", seg=seg,
+                              record=self.seg_timings["tsdf_fuse"].append):
+            grid = tsdf.fuse_frames(frames, poses, self.fx, self.fy, self.cx,
+                                    self.cy, voxel=self.registration_voxel,
+                                    trunc=0.04, bounds=(lo, hi),
+                                    fixed_dims=(192, 192, 192),
+                                    device=self.device)
+            self._sync()
+        with self.tracer.span("lc.mesh", seg=seg,
+                              record=self.seg_timings["extract_mesh"].append):
+            verts, _faces, cols = tsdf.extract_mesh(grid)
         return verts, cols
 
     def _apply_loop_closure(self, idx) -> Optional[np.ndarray]:
@@ -800,10 +807,10 @@ class LoopySLAM:
             frame_des = []
             for i in range(old.start_idx + 1, new.start_idx):
                 c, _ = self._segment_frame(i)
-                t0 = time.perf_counter()
-                frame_des.append(extract_orb(c, self.device))
-                self.seg_timings["orb_frame"].append(
-                    time.perf_counter() - t0)
+                with self.tracer.span(
+                        "lc.orb", seg=len(frags) - 1, at=i,
+                        record=self.seg_timings["orb_frame"].append):
+                    frame_des.append(extract_orb(c, self.device))
             self.lc.compute_baseline(old.anchor_des, frame_des)
         # the closed segment's cached frames served their purpose
         for i in list(self._seg_frames):
@@ -942,6 +949,7 @@ class LoopySLAM:
         m = cfg["mapping"]
         init = idx == 0
         cur_c2w = self.estimate_c2w[idx]
+        tr = self.tracer
 
         # ---------------- submap boundary ----------------
         new_fragment = False
@@ -954,202 +962,207 @@ class LoopySLAM:
             else:
                 new_fragment = self.fm.should_start_new(cur_c2w)
             if new_fragment:
-                self._start_new_segment(idx, cur_c2w, gt_c2w, color_np,
-                                        depth_np)
+                with tr.span("lc.segment", seg=len(self.fm.fragments)):
+                    self._start_new_segment(idx, cur_c2w, gt_c2w, color_np,
+                                            depth_np)
 
         # ---------------- point insertion ----------------
         frame_pts_add = 0
         if not color_refine:
-            self._maybe_grow_capacity()
-            if init:
-                med = float(np.median(depth_np[depth_np > 0])) if (
-                    depth_np > 0).any() else 2.5
-                add_n = int(np.clip(m["pixels_adding"] * (med / 2.5) ** 2,
-                                    m["pixels_adding"],
-                                    m["pixels_adding"] * 3))
-            else:
-                add_n = m["pixels_adding"]
-            cur_t = torch.as_tensor(cur_c2w, device=self.device)
-            # the previous mapped pose is read fresh from the trajectory,
-            # so a loop-closure correction since then is reflected
-            prev_t = torch.as_tensor(
-                self.estimate_c2w[self.prev_mapped_idx]
-                if self.prev_mapped_idx is not None else cur_c2w,
-                device=self.device)
-            add = mapper_mod.add_points_from_frame
-            dra = self.cur_r_add
-            ins = self._insert_candidates_sharded
-            if self.map_sharded and m["filter_before_add_points"] \
-                    and not init:
-                n_add = (ins(color, depth, cur_t, prev_t, add_n, False)
-                         + ins(color, depth, cur_t, prev_t, 1000, True))
-            elif self.map_sharded:
-                n_add = ins(color, depth, cur_t, prev_t, add_n)
-            elif m["filter_before_add_points"] and not init:
-                self.map_state, n1 = add(self.map_state, color, depth, cur_t,
-                                         prev_t, self.draw, self.mopts_map,
-                                         self.mopts, add_n, overlap=False,
-                                         dynamic_r_add=dra)
-                self.map_state, n2 = add(self.map_state, color, depth, cur_t,
-                                         prev_t, self.draw, self.mopts_map,
-                                         self.mopts, 1000, overlap=True,
-                                         dynamic_r_add=dra)
-                n_add = n1 + n2
-            else:
-                self.map_state, n_add = add(self.map_state, color, depth,
-                                            cur_t, prev_t, self.draw,
-                                            self.mopts_map, self.mopts,
-                                            add_n, overlap=None,
-                                            dynamic_r_add=dra)
-            n_grad = torch.zeros_like(n_add)
-            use_grad = m["pixels_based_on_color_grad"] > 0
-            flat = self._grad_insert_pixels(color_np) if use_grad else None
-            if flat is not None and self.map_sharded:
-                n_grad = ins(color, depth, cur_t, None, 0, flat_idx=torch.
-                             as_tensor(flat, device=self.device))
-            elif flat is not None:
-                self.map_state, n_grad = mapper_mod.add_points_at_pixels(
-                    self.map_state, color, depth, cur_t,
-                    torch.as_tensor(flat, device=self.device), self.draw,
-                    self.mopts_map, self.mopts, dynamic_r_add=dra)
-            # the one host fetch of the insertion
-            frame_pts_add, n_grad = torch.stack(
-                [n_add + n_grad, n_grad]).tolist()
-            if use_grad:
-                self.grad_stats["map_locations"].append(n_grad)
-            self._count_host += frame_pts_add * self.mopts_map.N_add
-            if self.verbose:
-                print(f"{frame_pts_add} locations to add points "
-                      f"(total {self._count_host}).")
+            with tr.span("map.insert"):
+                self._maybe_grow_capacity()
+                if init:
+                    med = float(np.median(depth_np[depth_np > 0])) if (
+                        depth_np > 0).any() else 2.5
+                    add_n = int(np.clip(m["pixels_adding"] * (med / 2.5) ** 2,
+                                        m["pixels_adding"],
+                                        m["pixels_adding"] * 3))
+                else:
+                    add_n = m["pixels_adding"]
+                cur_t = torch.as_tensor(cur_c2w, device=self.device)
+                # the previous mapped pose is read fresh from the trajectory,
+                # so a loop-closure correction since then is reflected
+                prev_t = torch.as_tensor(
+                    self.estimate_c2w[self.prev_mapped_idx]
+                    if self.prev_mapped_idx is not None else cur_c2w,
+                    device=self.device)
+                add = mapper_mod.add_points_from_frame
+                dra = self.cur_r_add
+                ins = self._insert_candidates_sharded
+                if self.map_sharded and m["filter_before_add_points"] \
+                        and not init:
+                    n_add = (ins(color, depth, cur_t, prev_t, add_n, False)
+                             + ins(color, depth, cur_t, prev_t, 1000, True))
+                elif self.map_sharded:
+                    n_add = ins(color, depth, cur_t, prev_t, add_n)
+                elif m["filter_before_add_points"] and not init:
+                    self.map_state, n1 = add(
+                        self.map_state, color, depth, cur_t, prev_t,
+                        self.draw, self.mopts_map, self.mopts, add_n,
+                        overlap=False, dynamic_r_add=dra)
+                    self.map_state, n2 = add(
+                        self.map_state, color, depth, cur_t, prev_t,
+                        self.draw, self.mopts_map, self.mopts, 1000,
+                        overlap=True, dynamic_r_add=dra)
+                    n_add = n1 + n2
+                else:
+                    self.map_state, n_add = add(self.map_state, color, depth,
+                                                cur_t, prev_t, self.draw,
+                                                self.mopts_map, self.mopts,
+                                                add_n, overlap=None,
+                                                dynamic_r_add=dra)
+                n_grad = torch.zeros_like(n_add)
+                use_grad = m["pixels_based_on_color_grad"] > 0
+                flat = self._grad_insert_pixels(color_np) if use_grad else None
+                if flat is not None and self.map_sharded:
+                    n_grad = ins(color, depth, cur_t, None, 0, flat_idx=torch.
+                                 as_tensor(flat, device=self.device))
+                elif flat is not None:
+                    self.map_state, n_grad = mapper_mod.add_points_at_pixels(
+                        self.map_state, color, depth, cur_t,
+                        torch.as_tensor(flat, device=self.device), self.draw,
+                        self.mopts_map, self.mopts, dynamic_r_add=dra)
+                # the one host fetch of the insertion
+                frame_pts_add, n_grad = torch.stack(
+                    [n_add + n_grad, n_grad]).tolist()
+                if use_grad:
+                    self.grad_stats["map_locations"].append(n_grad)
+                self._count_host += frame_pts_add * self.mopts_map.N_add
+                if self.verbose:
+                    print(f"{frame_pts_add} locations to add points "
+                          f"(total {self._count_host}).")
 
         # ---------------- loop closure ----------------
         if new_fragment and len(self.fm.fragments) >= 2:
-            corrected = self._apply_loop_closure(idx)
-            if corrected is not None:
-                self.estimate_c2w[idx] = corrected
-                cur_c2w = corrected
+            with tr.span("map.lc", seg=len(self.fm.fragments) - 1):
+                corrected = self._apply_loop_closure(idx)
+                if corrected is not None:
+                    self.estimate_c2w[idx] = corrected
+                    cur_c2w = corrected
 
-        # ---------------- frustum feature selection ----------------
-        if self.map_sharded:
-            feat_mask = (mapper_mod.frustum_feature_mask(
-                self._smap.pos, self._smap.count,
-                torch.as_tensor(cur_c2w, device=self.device), depth,
-                self.mopts)
-                if m["frustum_feature_selection"] and not color_refine
-                else self._shard_valid())
-        elif m["frustum_feature_selection"] and not color_refine:
-            feat_mask = mapper_mod.frustum_feature_mask(
-                self.map_state.pos, self.map_state.count,
-                torch.as_tensor(cur_c2w, device=self.device), depth,
-                self.mopts)
-        else:
-            feat_mask = valid_mask(self.map_state)
+        with tr.span("map.window"):
+            # ---------------- frustum feature selection ----------------
+            if self.map_sharded:
+                feat_mask = (mapper_mod.frustum_feature_mask(
+                    self._smap.pos, self._smap.count,
+                    torch.as_tensor(cur_c2w, device=self.device), depth,
+                    self.mopts)
+                    if m["frustum_feature_selection"] and not color_refine
+                    else self._shard_valid())
+            elif m["frustum_feature_selection"] and not color_refine:
+                feat_mask = mapper_mod.frustum_feature_mask(
+                    self.map_state.pos, self.map_state.count,
+                    torch.as_tensor(cur_c2w, device=self.device), depth,
+                    self.mopts)
+            else:
+                feat_mask = valid_mask(self.map_state)
 
-        # ---------------- keyframe window ----------------
-        if color_refine:
-            # the merged end-state map; the window is every segment's
-            # anchor frame and the current frame
-            self._build_end_state()
-            feat_mask = valid_mask(self.map_state)
-            if self.map_sharded:  # the merged map trains on the shards
-                npc, feat_host = self._host_map()
-                self._scatter_to_shards(npc, feat_host)
-                feat_mask = self._shard_valid()
-            frags = self.fm.fragments
-            up = lambda a: torch.as_tensor(  # noqa: E731
-                np.stack(a).astype(np.float32), device=self.device)
-            kc = torch.cat([up([f.gt_color for f in frags]), color[None]])
-            kd = torch.cat([up([f.gt_depth for f in frags]), depth[None]])
-            kp = up([f.anchor_est for f in frags] + [cur_c2w])
-            # the reference gives every window frame the CURRENT frame's
-            # query-radius map here, not each anchor's own: copied as it is
-            krq = (self.cur_r_query[None].expand(kc.shape[0], -1, -1)
-                   if self.use_dynamic_radius else None)
-            pix_per_frame = max(m["pixels"] // 10, 1)
-            exp_src = [f.start_idx for f in frags]
-        else:
-            k = self.mapping_window_size - 2
-            window: List[Optional[int]] = []
-            if len(self.keyframe_list) > 1:
-                cand = self.keyframe_list[:-1]
-                if m["keyframe_selection_method"] == "global":
-                    window = cand[max(0, len(cand) - k):]
-                else:  # 'overlap'
-                    sel = mapper_mod.keyframe_selection_overlap(
-                        self.nprng, depth_np, cur_c2w,
-                        [self.kf_est_c2w[i] for i in cand], k, self.mopts)
-                    window = [cand[s] for s in sel]
-            if self.keyframe_list:
-                window = window + [self.keyframe_list[-1]]
-            self.selected_keyframes[idx] = [
-                {"idx": i, "est_c2w": self.kf_est_c2w[i],
-                 "gt_c2w": self.kf_gt_c2w[i]} for i in window]
-            # pad to the fixed window size, current frame LAST; padding
-            # repeats the window cyclically (equal share per frame)
-            base: List[Optional[int]] = list(window) + [None]
-            n_pad = max(self.mapping_window_size - len(base), 0)
-            pads = [base[i % len(base)] for i in range(n_pad)]
-            window = list(window) + pads + [None]
-            pix_per_frame = max(m["pixels"] // len(window), 1)
-            kc, kd, kp, krq = self._window(window, color, depth, cur_c2w)
-            exp_src = window[:-1]  # the last is the current frame
+            # ---------------- keyframe window ----------------
+            if color_refine:
+                # the merged end-state map; the window is every segment's
+                # anchor frame and the current frame
+                self._build_end_state()
+                feat_mask = valid_mask(self.map_state)
+                if self.map_sharded:  # the merged map trains on the shards
+                    npc, feat_host = self._host_map()
+                    self._scatter_to_shards(npc, feat_host)
+                    feat_mask = self._shard_valid()
+                frags = self.fm.fragments
+                up = lambda a: torch.as_tensor(  # noqa: E731
+                    np.stack(a).astype(np.float32), device=self.device)
+                kc = torch.cat([up([f.gt_color for f in frags]), color[None]])
+                kd = torch.cat([up([f.gt_depth for f in frags]), depth[None]])
+                kp = up([f.anchor_est for f in frags] + [cur_c2w])
+                # the reference gives every window frame the CURRENT frame's
+                # query-radius map here, not each anchor's own: copied as it is
+                krq = (self.cur_r_query[None].expand(kc.shape[0], -1, -1)
+                       if self.use_dynamic_radius else None)
+                pix_per_frame = max(m["pixels"] // 10, 1)
+                exp_src = [f.start_idx for f in frags]
+            else:
+                k = self.mapping_window_size - 2
+                window: List[Optional[int]] = []
+                if len(self.keyframe_list) > 1:
+                    cand = self.keyframe_list[:-1]
+                    if m["keyframe_selection_method"] == "global":
+                        window = cand[max(0, len(cand) - k):]
+                    else:  # 'overlap'
+                        sel = mapper_mod.keyframe_selection_overlap(
+                            self.nprng, depth_np, cur_c2w,
+                            [self.kf_est_c2w[i] for i in cand], k, self.mopts)
+                        window = [cand[s] for s in sel]
+                if self.keyframe_list:
+                    window = window + [self.keyframe_list[-1]]
+                self.selected_keyframes[idx] = [
+                    {"idx": i, "est_c2w": self.kf_est_c2w[i],
+                     "gt_c2w": self.kf_gt_c2w[i]} for i in window]
+                # pad to the fixed window size, current frame LAST; padding
+                # repeats the window cyclically (equal share per frame)
+                base: List[Optional[int]] = list(window) + [None]
+                n_pad = max(self.mapping_window_size - len(base), 0)
+                pads = [base[i % len(base)] for i in range(n_pad)]
+                window = list(window) + pads + [None]
+                pix_per_frame = max(m["pixels"] // len(window), 1)
+                kc, kd, kp, krq = self._window(window, color, depth, cur_c2w)
+                exp_src = window[:-1]  # the last is the current frame
 
-        # the window's exposure latents: each keyframe's own (zeros for a
-        # frame without one), the current latent for the current frame
-        # (the last row, which the mapper replaces by the trainable one)
-        kf_exp = exp = None
-        if self.encode_exposure:
-            cur = self.exposure_feat.cpu().numpy()
-            zeros = np.zeros_like(cur)
-            rows = [cur if i is None else self.kf_exposure.get(i, zeros)
-                    for i in exp_src] + [cur]
-            kf_exp = torch.as_tensor(np.stack(rows), device=self.device)
-            exp = self.exposure_feat
+            # the window's exposure latents: each keyframe's own (zeros for a
+            # frame without one), the current latent for the current frame
+            # (the last row, which the mapper replaces by the trainable one)
+            kf_exp = exp = None
+            if self.encode_exposure:
+                cur = self.exposure_feat.cpu().numpy()
+                zeros = np.zeros_like(cur)
+                rows = [cur if i is None else self.kf_exposure.get(i, zeros)
+                        for i in exp_src] + [cur]
+                kf_exp = torch.as_tensor(np.stack(rows), device=self.device)
+                exp = self.exposure_feat
 
-        # ---------------- iteration schedule ----------------
-        num = m["iters_first"] if init else m["iters"]
-        if color_refine:
-            num = m["iters"] * 2  # x10 over the 5 outer rounds
-        elif not init:
-            num = int(np.clip(num * frame_pts_add / 300,
-                              int(m["min_iter_ratio"] * num), 2 * num))
-        geo_limit = m["geo_iter_first"] if init else int(
-            num * m["geo_iter_ratio"])
-        n_geo = min(geo_limit + 1, num)
-        n_col = num - n_geo
-        table = m["init"] if init else m["stage"]
-        lrs_geo = [table["geometry"]["decoders_lr"],
-                   table["geometry"]["geometry_lr"],
-                   table["geometry"]["color_lr"]]
-        lrs_col = [table["color"]["decoders_lr"],
-                   table["color"]["geometry_lr"],
-                   table["color"]["color_lr"]]
-        dec_mask = self.dec_mask
-        if color_refine:  # the color decoder stays fixed while refining
-            dec_mask = trainable_mask(self.dec, {
-                **cfg, "mapping": {**m, "fix_color_decoder": True}})
+            # ---------------- iteration schedule ----------------
+            num = m["iters_first"] if init else m["iters"]
+            if color_refine:
+                num = m["iters"] * 2  # x10 over the 5 outer rounds
+            elif not init:
+                num = int(np.clip(num * frame_pts_add / 300,
+                                  int(m["min_iter_ratio"] * num), 2 * num))
+            geo_limit = m["geo_iter_first"] if init else int(
+                num * m["geo_iter_ratio"])
+            n_geo = min(geo_limit + 1, num)
+            n_col = num - n_geo
+            table = m["init"] if init else m["stage"]
+            lrs_geo = [table["geometry"]["decoders_lr"],
+                       table["geometry"]["geometry_lr"],
+                       table["geometry"]["color_lr"]]
+            lrs_col = [table["color"]["decoders_lr"],
+                       table["color"]["geometry_lr"],
+                       table["color"]["color_lr"]]
+            dec_mask = self.dec_mask
+            if color_refine:  # the color decoder stays fixed while refining
+                dec_mask = trainable_mask(self.dec, {
+                    **cfg, "mapping": {**m, "fix_color_decoder": True}})
 
-        # bundle adjustment once the window has more than 4 keyframes:
-        # the window's poses train as 7-vectors; the oldest keyframe and
-        # the repeats of the padded window stay fixed (only a frame's
-        # first row trains)
-        ba = None
-        if m["BA"] and not color_refine and len(self.keyframe_list) > 4:
-            kf_rows = [i for i in window if i is not None]
-            oldest = min(kf_rows) if kf_rows else None
-            seen = set()
-            rows = []
-            for i in window:
-                rows.append(1.0 if (i not in seen and i != oldest) else 0.0)
-                seen.add(i)
-            cams = np.stack([tensor_from_c2w(
-                cur_c2w if i is None else self.kf_est_c2w[i])
-                for i in window]).astype(np.float32)
-            ba = dict(cams=torch.as_tensor(cams, device=self.device),
-                      ba_row_mask=rows, ba_lr=float(m["BA_cam_lr"]),
-                      ba_window=(num * (m["geo_iter_ratio"] + 0.2),
-                                 num * (m["geo_iter_ratio"] + 0.3)))
-            self.ba_frames.append(idx)
+            # bundle adjustment once the window has more than 4 keyframes:
+            # the window's poses train as 7-vectors; the oldest keyframe and
+            # the repeats of the padded window stay fixed (only a frame's
+            # first row trains)
+            ba = None
+            if m["BA"] and not color_refine and len(self.keyframe_list) > 4:
+                kf_rows = [i for i in window if i is not None]
+                oldest = min(kf_rows) if kf_rows else None
+                seen = set()
+                rows = []
+                for i in window:
+                    rows.append(1.0 if (i not in seen and i != oldest)
+                                else 0.0)
+                    seen.add(i)
+                cams = np.stack([tensor_from_c2w(
+                    cur_c2w if i is None else self.kf_est_c2w[i])
+                    for i in window]).astype(np.float32)
+                ba = dict(cams=torch.as_tensor(cams, device=self.device),
+                          ba_row_mask=rows, ba_lr=float(m["BA_cam_lr"]),
+                          ba_window=(num * (m["geo_iter_ratio"] + 0.2),
+                                     num * (m["geo_iter_ratio"] + 0.3)))
+                self.ba_frames.append(idx)
 
         # the iteration budget runs in chunks of device_chunk_iters; each
         # chunk rebuilds the ray pool (and its k-NN) and the Adam state
@@ -1181,79 +1194,88 @@ class LoopySLAM:
                             kp)
                     tail = (g, c, lrs_geo, lrs_col, self.mopts,
                             self.ropts_mapper, pix_per_frame)
-                    kept["geo" if g else "col"] = self._keep_call(
-                        mapper_mod.optimize_map, args, tail, kw)
-                out = self._optimize(
-                    feat, st, dec_mask, feat_mask, kc, kd, kp, g, c,
-                    lrs_geo, lrs_col, pix_per_frame, **kw)
+                    with tr.span("map.keep"):
+                        kept["geo" if g else "col"] = self._keep_call(
+                            mapper_mod.optimize_map, args, tail, kw)
+                with tr.span("map.chunk", stage="color" if c else "geometry",
+                             iters=g + c):
+                    out = self._optimize(
+                        feat, st, dec_mask, feat_mask, kc, kd, kp, g, c,
+                        lrs_geo, lrs_col, pix_per_frame, **kw)
                 feat, st, aux = out[:3]
                 if self.encode_exposure:
                     exp = out[3]
                 if ba is not None:
                     ba["cams"] = out[-1]
                 done += g + c
-        if (kept is not None and ("geo" in kept or not n_geo)
-                and ("col" in kept or not n_col)):
-            self._roofline_calls["map"] = dict(
-                chunks=kept, idx=idx, n_geo=n_geo, n_col=n_col,
-                chunk_iters=chunk)
-        if self.map_sharded:
-            self._smap = self._smap._replace(feat=feat)
-            self._smap_dirty = True
-        else:
-            self.map_state = self.map_state._replace(feat=feat)
-        if ba is not None:
-            # the trained poses back into the trajectory: each keyframe's
-            # estimate (its first row) and the current frame's
-            new_cams = ba["cams"].cpu().numpy()
-            seen = set()
-            for row, i in enumerate(window):
-                if i in seen or rows[row] == 0.0:
-                    continue
-                seen.add(i)
-                c2w4 = np_c2w_from_tensor(new_cams[row])
-                if i is None:
-                    cur_c2w = c2w4
-                    self.estimate_c2w[idx] = c2w4
-                else:
-                    self.kf_est_c2w[i] = c2w4
-        if self.encode_exposure:
-            self.exposure_feat = exp
-            if not color_refine and self.rank == 0:
-                # the latent and the color decoder this frame was mapped
-                # with, for final_eval's renders
-                self.mapped_exposure[idx] = exp.cpu().numpy()
-                cd_dir = os.path.join(self.output, "ckpts", "color_decoder")
-                os.makedirs(cd_dir, exist_ok=True)
-                save_checkpoint(os.path.join(cd_dir, f"{idx:05d}.pkl"),
-                                decoders_to_numpy(self.dec)["col"])
-        if (self.verbose or self.wandb.enabled) and aux is not None:
-            grid = (self._smap if self.map_sharded else self.map_state).grid
-            g_, c_, n_, drop = torch.stack(
-                list(aux) + [grid.n_dropped.float()]).cpu().tolist()
-            if self.verbose:
-                print(f"idx: {idx}, geo_loss_pixel: {g_ / max(n_, 1):.6f}, "
-                      f"color_loss_pixel: {c_ / max(n_, 1):.4f}, "
-                      f"iters: {num}"
-                      + (f", knn_dropped: {int(drop)}" if drop else ""))
-            self.wandb.log({"idx_map": idx,
-                            "geo_loss_pixel": g_ / max(n_, 1),
-                            "color_loss_pixel": c_ / max(n_, 1),
-                            "pts_total": self._count_host,
-                            "knn_dropped": int(drop),
-                            "num_joint_iters": num})
+        with tr.span("map.writeback"):
+            if (kept is not None and ("geo" in kept or not n_geo)
+                    and ("col" in kept or not n_col)):
+                self._roofline_calls["map"] = dict(
+                    chunks=kept, idx=idx, n_geo=n_geo, n_col=n_col,
+                    chunk_iters=chunk)
+            if self.map_sharded:
+                self._smap = self._smap._replace(feat=feat)
+                self._smap_dirty = True
+            else:
+                self.map_state = self.map_state._replace(feat=feat)
+            if ba is not None:
+                # the trained poses back into the trajectory: each keyframe's
+                # estimate (its first row) and the current frame's
+                new_cams = ba["cams"].cpu().numpy()
+                seen = set()
+                for row, i in enumerate(window):
+                    if i in seen or rows[row] == 0.0:
+                        continue
+                    seen.add(i)
+                    c2w4 = np_c2w_from_tensor(new_cams[row])
+                    if i is None:
+                        cur_c2w = c2w4
+                        self.estimate_c2w[idx] = c2w4
+                    else:
+                        self.kf_est_c2w[i] = c2w4
+            if self.encode_exposure:
+                self.exposure_feat = exp
+                if not color_refine and self.rank == 0:
+                    # the latent and the color decoder this frame was mapped
+                    # with, for final_eval's renders
+                    self.mapped_exposure[idx] = exp.cpu().numpy()
+                    cd_dir = os.path.join(self.output, "ckpts",
+                                          "color_decoder")
+                    os.makedirs(cd_dir, exist_ok=True)
+                    save_checkpoint(os.path.join(cd_dir, f"{idx:05d}.pkl"),
+                                    decoders_to_numpy(self.dec)["col"])
+            if (self.verbose or self.wandb.enabled) and aux is not None:
+                grid = (self._smap if self.map_sharded
+                        else self.map_state).grid
+                g_, c_, n_, drop = torch.stack(
+                    list(aux) + [grid.n_dropped.float()]).cpu().tolist()
+                if self.verbose:
+                    print(f"idx: {idx}, "
+                          f"geo_loss_pixel: {g_ / max(n_, 1):.6f}, "
+                          f"color_loss_pixel: {c_ / max(n_, 1):.4f}, "
+                          f"iters: {num}"
+                          + (f", knn_dropped: {int(drop)}" if drop else ""))
+                self.wandb.log({"idx_map": idx,
+                                "geo_loss_pixel": g_ / max(n_, 1),
+                                "color_loss_pixel": c_ / max(n_, 1),
+                                "pts_total": self._count_host,
+                                "knn_dropped": int(drop),
+                                "num_joint_iters": num})
 
         # ---------------- keyframe bookkeeping ----------------
-        ok_gt = np.isfinite(gt_c2w).all()
-        if ((idx % self.keyframe_every == 0 or idx == self.n_img - 2)
-                and idx not in self.keyframe_list and ok_gt):
-            self._add_keyframe(idx, color, depth, cur_c2w, gt_c2w)
-            self.keyframe_list.append(idx)
-        if ((idx % self.keyframe_global_every == 0 or idx == self.n_img - 2)
-                and idx not in self.keyframe_global_list and ok_gt):
-            self._add_keyframe(idx, color, depth, cur_c2w, gt_c2w)
-            self.keyframe_global_list.append(idx)
-        self.prev_mapped_idx = idx
+        with tr.span("map.keyframe"):
+            ok_gt = np.isfinite(gt_c2w).all()
+            if ((idx % self.keyframe_every == 0 or idx == self.n_img - 2)
+                    and idx not in self.keyframe_list and ok_gt):
+                self._add_keyframe(idx, color, depth, cur_c2w, gt_c2w)
+                self.keyframe_list.append(idx)
+            if ((idx % self.keyframe_global_every == 0
+                 or idx == self.n_img - 2)
+                    and idx not in self.keyframe_global_list and ok_gt):
+                self._add_keyframe(idx, color, depth, cur_c2w, gt_c2w)
+                self.keyframe_global_list.append(idx)
+            self.prev_mapped_idx = idx
 
     def _keep_call(self, fn, args, tail, kw):
         """A hot call, fn(dec, *args, draw, *tail, **kw), kept for
@@ -1520,12 +1542,86 @@ class LoopySLAM:
         vis = getattr(self, f"{which}_vis")
         if vis is None:
             return
-        t0 = time.perf_counter()
-        if vis.vis(idx, iters - 1, depth_np, color_np,
-                   self.estimate_c2w[idx],
-                   r_query_map=self.cur_r_query) is not None:
-            self.timings.setdefault("vis", []).append(
-                time.perf_counter() - t0)
+        seconds = []
+        with self.tracer.span("frame.vis", record=seconds.append,
+                              which=which):
+            panels = vis.vis(idx, iters - 1, depth_np, color_np,
+                             self.estimate_c2w[idx],
+                             r_query_map=self.cur_r_query)
+        if panels is not None:
+            self.timings.setdefault("vis", []).extend(seconds)
+
+    # ------------------------------------------------------------------
+    def _run_frame(self, idx, stop, progress, next_frame) -> bool:
+        """One frame of run(): fetch, upload, track, map, checkpoint.
+        Returns True when the run stops after it."""
+        tr = self.tracer
+        timings = self.timings
+        if progress:
+            err = (np.linalg.norm(self.estimate_c2w[idx - 1][:3, 3]
+                                  - self.gt_c2w[idx - 1][:3, 3])
+                   if idx > 0 else 0.0)
+            print(f"[frame {idx}/{self.n_img} "
+                  f"t={time.perf_counter():.0f} prev_err={err:.4f} "
+                  f"pts={self._count_host} "
+                  f"segs={len(self.fm.fragments)}]",
+                  file=sys.stderr, flush=True)
+        with tr.span("frame.data",
+                     record=timings.setdefault("data", []).append):
+            _, color_np, depth_np, gt_c2w = next_frame(idx)
+        with tr.span("frame.upload",
+                     record=timings.setdefault("upload", []).append):
+            color, depth = _upload_frame(color_np, depth_np, self.device)
+            if self.lc_enabled:
+                self._seg_frames[idx] = (
+                    np.clip(color_np * 255.0, 0, 255).astype(np.uint8),
+                    depth_np)
+                # bounded even when no boundary ever fires: the oldest
+                # entries go (a later read reloads them)
+                while len(self._seg_frames) > 600:
+                    del self._seg_frames[min(self._seg_frames)]
+            self.gt_c2w[idx] = gt_c2w
+            self.cur_r_add, self.cur_r_query = self._dynamic_radius(
+                color_np)
+
+        if idx <= 1 or self.cfg["tracking"]["gt_camera"]:
+            self.estimate_c2w[idx] = gt_c2w
+        else:
+            with tr.span("track", record=lambda s: self._time_frame(
+                    "track", idx, s)):
+                self.estimate_c2w[idx] = self.track_frame(
+                    idx, color, depth, color_np, depth_np)
+            self._vis("tracking", idx, self.topts.iters, depth_np, color_np)
+
+        if idx % self.every_frame == 0 or idx == self.n_img - 1:
+            if self.verbose:
+                print(f"Mapping Frame {idx}")
+            with tr.span("map", record=lambda s: self._time_frame(
+                    "map", idx, s)):
+                self.map_frame(idx, color, depth, gt_c2w, depth_np,
+                               color_np)
+                self._sync()
+            self._vis("mapping", idx, self.cfg["mapping"]["iters"],
+                      depth_np, color_np)
+            if (idx == self.n_img - 1 and self.cfg["mapping"]["color_refine"]
+                    and not stop):
+                if self.verbose:
+                    print("color_refine")
+                refine = timings["color_refine"] = []
+                with tr.span("map.refine", record=refine.append):
+                    self.map_frame(idx, color, depth, gt_c2w, depth_np,
+                                   color_np, color_refine=True)
+                    self._sync()
+
+        if self.cfg["tracking"]["visual_odometer"]:
+            self._prev_frame = (color, depth)
+
+        ckpt_freq = self.cfg["mapping"]["ckpt_freq"]
+        if (self.cfg["mapping"]["save_ckpts"] and idx > 0
+                and idx % ckpt_freq == 0):
+            with tr.span("frame.ckpt"):
+                self.finalize(idx, final=False)
+        return bool(stop and idx != 0 and idx % stop == 0)
 
     # ------------------------------------------------------------------
     def run(self, stop: Optional[int] = None, start_idx: int = 0):
@@ -1548,23 +1644,27 @@ class LoopySLAM:
         # the next frames overlaps the device work of this one
         frames_q: _queue.Queue = _queue.Queue(maxsize=2)
         stop_evt = _threading.Event()
+        tr = self.tracer
 
         def _producer():
             for i in range(start_idx, self.n_img):
                 try:
-                    item = self.dataset[i]
+                    with tr.span("loader.frame", frame=i):
+                        item = self.dataset[i]
                 except Exception as e:  # noqa: BLE001 - re-raised below
                     item = e
-                while not stop_evt.is_set():
-                    try:
-                        frames_q.put((i, item), timeout=0.5)
-                        break
-                    except _queue.Full:
-                        continue
+                with tr.span("loader.put", frame=i):
+                    while not stop_evt.is_set():
+                        try:
+                            frames_q.put((i, item), timeout=0.5)
+                            break
+                        except _queue.Full:
+                            continue
                 if stop_evt.is_set() or isinstance(item, Exception):
                     return
 
-        prefetch_t = _threading.Thread(target=_producer, daemon=True)
+        prefetch_t = _threading.Thread(target=_producer, daemon=True,
+                                       name="loader")
         prefetch_t.start()
 
         def _next_frame(idx):
@@ -1587,80 +1687,20 @@ class LoopySLAM:
         progress = os.environ.get("LOOPY_PROGRESS")
         idx = start_idx
         try:
-            for idx in range(start_idx, self.n_img):
-                if progress:
-                    err = (np.linalg.norm(self.estimate_c2w[idx - 1][:3, 3]
-                                          - self.gt_c2w[idx - 1][:3, 3])
-                           if idx > 0 else 0.0)
-                    print(f"[frame {idx}/{self.n_img} "
-                          f"t={time.perf_counter():.0f} prev_err={err:.4f} "
-                          f"pts={self._count_host} "
-                          f"segs={len(self.fm.fragments)}]",
-                          file=sys.stderr, flush=True)
-                t_f = time.perf_counter()
-                _, color_np, depth_np, gt_c2w = _next_frame(idx)
-                self.timings.setdefault("data", []).append(
-                    time.perf_counter() - t_f)
-                t_f = time.perf_counter()
-                color, depth = _upload_frame(color_np, depth_np, self.device)
-                if self.lc_enabled:
-                    self._seg_frames[idx] = (
-                        np.clip(color_np * 255.0, 0, 255).astype(np.uint8),
-                        depth_np)
-                    # bounded even when no boundary ever fires: the oldest
-                    # entries go (a later read reloads them)
-                    while len(self._seg_frames) > 600:
-                        del self._seg_frames[min(self._seg_frames)]
-                self.gt_c2w[idx] = gt_c2w
-                self.cur_r_add, self.cur_r_query = self._dynamic_radius(
-                    color_np)
-                self.timings.setdefault("upload", []).append(
-                    time.perf_counter() - t_f)
-
-                if idx <= 1 or self.cfg["tracking"]["gt_camera"]:
-                    self.estimate_c2w[idx] = gt_c2w
-                else:
-                    t0 = time.perf_counter()
-                    self.estimate_c2w[idx] = self.track_frame(
-                        idx, color, depth, color_np, depth_np)
-                    self._time_frame("track", idx, time.perf_counter() - t0)
-                    self._vis("tracking", idx, self.topts.iters, depth_np,
-                              color_np)
-
-                if idx % self.every_frame == 0 or idx == self.n_img - 1:
-                    if self.verbose:
-                        print(f"Mapping Frame {idx}")
-                    t0 = time.perf_counter()
-                    self.map_frame(idx, color, depth, gt_c2w, depth_np,
-                                   color_np)
-                    self._sync()
-                    self._time_frame("map", idx, time.perf_counter() - t0)
-                    self._vis("mapping", idx, self.cfg["mapping"]["iters"],
-                              depth_np, color_np)
-                    if (idx == self.n_img - 1
-                            and self.cfg["mapping"]["color_refine"]
-                            and not stop):
-                        if self.verbose:
-                            print("color_refine")
-                        t0 = time.perf_counter()
-                        self.map_frame(idx, color, depth, gt_c2w, depth_np,
-                                       color_np, color_refine=True)
-                        self._sync()
-                        self.timings["color_refine"] = [
-                            time.perf_counter() - t0]
-
-                if self.cfg["tracking"]["visual_odometer"]:
-                    self._prev_frame = (color, depth)
-
-                ckpt_freq = self.cfg["mapping"]["ckpt_freq"]
-                if (self.cfg["mapping"]["save_ckpts"] and idx > 0
-                        and idx % ckpt_freq == 0):
-                    self.finalize(idx, final=False)
-                if stop and idx != 0 and idx % stop == 0:
-                    break
+            with telemetry.active(tr):
+                for idx in range(start_idx, self.n_img):
+                    tr.frame = idx
+                    with tr.span("frame", idx=idx):
+                        done = self._run_frame(idx, stop, progress,
+                                               _next_frame)
+                    tr.flush()
+                    if done:
+                        break
         finally:
             stop_evt.set()
             prefetch_t.join(timeout=5.0)
+            tr.frame = None
+            tr.flush()
         self.finalize(idx)
         if self.verbose:
             reg, pgo = self.lc.registration_times, self.lc.pgo_times

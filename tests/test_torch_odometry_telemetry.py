@@ -22,6 +22,7 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from conftest import small_cfg
@@ -104,10 +105,18 @@ def test_resume_with_the_odometer_equals_the_straight_run(tmp_path):
 
 def test_timers_summary_matches_jax():
     tt = ttel.Timers()
-    for name in ("track", "map", "track", "track"):
-        with tt.time(name):
-            pass
     jt = jtel.Timers()
+    for t in (tt, jt):
+        for name in ("track", "map", "track", "track"):
+            with t.time(name):
+                pass
+        # a block that raises is timed all the same
+        with pytest.raises(KeyError):
+            with t.time("map"):
+                raise KeyError
+    assert ({k: len(v) for k, v in tt.records.items()}
+            == {k: len(v) for k, v in jt.records.items()}
+            == {"track": 3, "map": 2})
     jt.records.update({k: list(v) for k, v in tt.records.items()})
     assert tt.summary() == jt.summary()
     assert tt.summary()["track"]["n"] == 3
@@ -133,5 +142,3 @@ def test_wandb_shim_is_a_no_op_without_wandb(monkeypatch, capsys,
     assert "wandb disabled (ImportError)" in capsys.readouterr().out
     on.log({"a": 1.0})
     on.finish()
-    with ttel.maybe_profile(None):
-        pass

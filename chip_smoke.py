@@ -19,6 +19,16 @@ Phases:
      `call_ms` (the wrapper's whole call, as the main path pays it, median
      of 20), beside the plain version's `plain_ms` and the bound; with
      --variants, also `variants`: the cold ms of each variant build;
+  3b. the tracker's render kernels (csrc/track_render.cu) against their
+     plain version at the benchmark cells' shapes (Replica's 1500 rays with
+     the rel-pos transform and a scalar radius, TUM's 5000 with per-query
+     radii), gated on depth, variance and colour within 1e-5 relative, the
+     points' gradient within 1e-4 relative norm and two calls bit-equal
+     (and reports which outputs are bit-equal to the plain version);
+     prints per shape the forward's and backward's device times (`ms`
+     cold, `ms_warm`), the wrapper's forward and backward (`call_ms`), the
+     plain version's (`plain_ms`) and the bound (products at the bf16
+     tensor-core peak, the rest at f32's, or bytes);
   4. runs the slice-1 path: LoopySLAM on configs/Synthetic/room.yaml's
      values (segment_strategy none, color_refine off, visualizer off) for
      6 frames (cut from 31, then 16, then 8, then 6, so that the whole
@@ -666,6 +676,165 @@ def kernel_phase(cfg, device, variant_libs):
     return results
 
 
+# the tracker's render kernels (csrc/track_render.cu) at the two benchmark
+# cells' shapes: Replica's 1500 rays with the rel-pos colour transform and
+# a scalar radius, TUM's 5000 with a per-query radius (5 samples, k = 8)
+TRACK_RENDER_SHAPES = {"replica R=1500 rel": (1500, True, False),
+                       "tum R=5000 per-query": (5000, False, True)}
+
+
+def track_render_bound(inputs, fwd, bwd):
+    """(ms, by) the least time of one forward and backward: products at
+    the bf16 tensor-core peak (989 TFLOP/s) plus the other operations at
+    the f32 peak (67 TFLOP/s), by the plain route's count (fwd, bwd:
+    _cost_of_plain's (flops, bytes, transcendentals, products)); bytes:
+    the picked pool rows, the points, z-vals, noise and parameters read
+    once, depth, variance, colour and the points' gradient written once,
+    over 3.35 TB/s."""
+    dec, ropts, pts, z, cache, pick, ng, nc = inputs
+    R, S, K = pick.shape[0], ropts.n_surface, ropts.nn_num
+    rows = R * S * (K * (cache["both"].shape[2] + 1) + 1) * 4 + R * 8
+    params = sum(p.numel() for p in dec.parameters()) * 4
+    nbytes = (rows + pts.numel() * 4 * 2 + z.numel() * 4 + ng.numel() * 8
+              + params + R * 5 * 4 + (0 if cache["rq"] is None else R * 4))
+    prod = fwd[3] + bwd[3]
+    other = fwd[0] + fwd[2] + bwd[0] + bwd[2] - prod
+    ops_s = prod / 989e12 + other / 67e12
+    bytes_s = nbytes / 3.35e12
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def track_render_phase(device):
+    """The render kernels against their plain version at the two cells'
+    shapes (depth, variance and colour within 1e-5 relative, the points'
+    gradient within 1e-4 relative norm, two calls bit-equal), their device
+    times (bare launches after an L2 flush, and back to
+    back), the wrapper's forward and backward as the tracker pays it, and
+    the plain version's."""
+    import ctypes
+
+    import torch
+
+    from loopy_slam_torch.csrc.build import load_track_library
+    from loopy_slam_torch.models import track_render
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_track_render_cuda import (_close, _grads, _render, gaps,
+                                              pool_inputs)
+
+    print("== phase 3b: the tracker's render kernels vs plain PyTorch on "
+          "the card", flush=True)
+    lib = load_track_library()
+    results = []
+    for name, (R, rel, per_query) in TRACK_RENDER_SHAPES.items():
+        inputs = pool_inputs(device, R, rel, per_query)
+        dec, ropts, pts, z, cache, pick, ng, nc = inputs
+        gd, gc = _grads(device, R)
+
+        def step(fn):
+            return _render(fn, inputs, gd, gc)
+
+        outs = [step(track_render.render) for _ in range(2)]
+        plain = step(track_render._render_plain)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        kernel_gaps = gaps(outs[0], plain)
+        ok = (same and all(_close(a, b, 1e-5)
+                           for a, b in zip(outs[0][:3], plain[:3]))
+              and kernel_gaps[3] <= 1e-4)
+        d1, g1 = outs[0][0], outs[0][3]
+        bit_equal = [bool(torch.equal(a, b))
+                     for a, b in zip(outs[0], plain)]
+
+        # bare launches, the arguments the wrapper passes
+        w = track_render._weight_array(dec, device)
+        S, K = ropts.n_surface, ropts.nn_num
+        nblk = -(-R // track_render.rays_per_block(S))
+        save = torch.empty(nblk * lib.track_render_save_floats(K, rel),
+                           device=device)
+        od, ov = torch.empty(R, device=device), torch.empty(R, device=device)
+        oc, gp = torch.empty((R, 3), device=device), torch.empty_like(pts)
+        rq = None if cache["rq"] is None else cache["rq"].data_ptr()
+        flags = (int(rel), int(dec.geo.bf16), int(dec.col.bf16))
+        common = (pts.data_ptr(), pick.data_ptr(), cache["D"].data_ptr(),
+                  cache["both"].data_ptr(), cache["nn"].data_ptr(),
+                  z.data_ptr(), rq, ctypes.c_float(ropts.radius_query))
+        stream = torch.cuda.current_stream().cuda_stream
+        coef = ctypes.c_float(ropts.sigmoid_coef)
+
+        def fwd():
+            lib.track_render_forward(
+                w, *common, ng.data_ptr(), nc.data_ptr(), od.data_ptr(),
+                ov.data_ptr(), oc.data_ptr(), save.data_ptr(), R, S, K,
+                ropts.min_nn_num, *flags, coef, stream)
+
+        def bwd():
+            lib.track_render_backward(
+                w, *common, gd.data_ptr(), 1, gc.data_ptr(), 3, 1,
+                save.data_ptr(), gp.data_ptr(), R, S, K, ropts.min_nn_num,
+                *flags, coef, stream)
+
+        fwd()
+        bwd()
+        torch.cuda.synchronize()
+        ok &= torch.equal(gp, g1) and torch.equal(od, d1)
+        fwd_ms, fwd_warm = time_device(fwd)
+        bwd_ms, bwd_warm = time_device(bwd)
+        call_ms = time_cuda(lambda: step(track_render.render))
+        plain_ms = time_cuda(lambda: step(track_render._render_plain))
+        fc, bc = track_render._cost_of_plain(dec, pts, z, cache, pick, ng,
+                                             nc, ropts)
+        bound_ms, bound_by = track_render_bound(inputs, fc, bc)
+        ms = fwd_ms + bwd_ms
+        res = {"shape": name, "R": R, "S": S, "K": K, "rel": rel,
+               "radius": "per query" if per_query else ropts.radius_query,
+               "bit_equal_repeat": same,
+               # depth, variance, colour (largest gap over the largest
+               # value), the points' gradient (relative norm), against the
+               # plain version on the card; and which are bit-equal
+               "gaps": kernel_gaps, "bit_equal": bit_equal,
+               "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "ms": ms,
+               "ms_warm": fwd_warm + bwd_warm, "call_ms": call_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+               "plain_flops": fc[0] + bc[0], "plain_products": fc[3] + bc[3]}
+        print(json.dumps(res), flush=True)
+        if not ok:
+            raise AssertionError(f"track_render disagrees with the plain "
+                                 f"version at {name}: {res}")
+        results.append(res)
+        del inputs, outs, plain, save
+        torch.cuda.empty_cache()
+    return results
+
+
+def track_render_expected(cfg, map_shard=False):
+    """Whether the tracker renders through the track_render kernels under
+    cfg, by the options the tracker itself reads: the cached iteration
+    (knn_refresh > 0, no sample_near_pcl, one map) with options that
+    track_render.eligible takes (so not ScanNet's exposure)."""
+    from loopy_slam_torch.mapping.tracker import TrackOptions
+    from loopy_slam_torch.models import track_render
+    from loopy_slam_torch.models.renderer import RenderOptions
+
+    topts = TrackOptions.from_cfg(cfg)
+    ropts = RenderOptions.from_cfg(
+        cfg, sigmoid_coef=cfg["rendering"]["sigmoid_coef_tracker"])
+    return bool(topts.knn_refresh > 0 and not ropts.sample_near_pcl
+                and not map_shard and track_render.eligible(ropts))
+
+
+def gate_track_render(by_path, expected):
+    """Each path launched the tracker's render kernels if and only if its
+    options take them (track_render_expected)."""
+    bad = {name: (n, expected[name]) for name, n in by_path.items()
+           if (n > 0) != expected[name]}
+    if bad:
+        raise AssertionError(f"track_render launches (count, expected) "
+                             f"against the paths' options: {bad}")
+
+
 def run_session(cfg, device):
     """LoopySLAM(cfg).run() with the kernels' launch counts reset just
     before the run and read just after. Returns (slam, result, summary)
@@ -673,6 +842,7 @@ def run_session(cfg, device):
     import numpy as np
     import torch
 
+    from loopy_slam_torch.models import track_render
     from loopy_slam_torch.ops import knn
     from loopy_slam_torch.slam import LoopySLAM
     from loopy_slam_torch.tools.eval_ate import evaluate_trajectories
@@ -682,12 +852,14 @@ def run_session(cfg, device):
     slam = LoopySLAM(cfg, output=out, device=device)
     try:
         knn.KNN_SELECT_LAUNCHES.reset()
+        track_render.TRACK_RENDER_LAUNCHES.reset()
         torch.cuda.reset_peak_memory_stats()
         t_run = time.perf_counter()
         result = slam.run()
         torch.cuda.synchronize()
         t_end = time.perf_counter()
         launches = knn.KNN_SELECT_LAUNCHES.count
+        track_launches = track_render.TRACK_RENDER_LAUNCHES.count
     finally:
         slam.close()
     stats = evaluate_trajectories(result["estimate_c2w"], result["gt_c2w"])
@@ -705,6 +877,8 @@ def run_session(cfg, device):
         "ate_rmse_m": stats["rmse"],
         "ate_rmse_noalign_m": stats["rmse_no_align"],
         "knn_select_launches": launches,
+        "track_render_launches": track_launches,
+        "track_render_expected": track_render_expected(cfg),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     return slam, result, summary
@@ -750,11 +924,13 @@ def roofline_report(slam, what, extra=None):
     import numpy as np
     import torch
 
+    from loopy_slam_torch.models import track_render
     from loopy_slam_torch.ops import knn
 
     traj = slam.estimate_c2w.copy()
     feat = slam.map_state.feat.detach().clone()
-    launches = knn.KNN_SELECT_LAUNCHES.count
+    launches = (knn.KNN_SELECT_LAUNCHES.count,
+                track_render.TRACK_RENDER_LAUNCHES.count)
     t0 = time.perf_counter()
     rl = slam.roofline()
     cost_s = time.perf_counter() - t0
@@ -784,7 +960,9 @@ def roofline_report(slam, what, extra=None):
     res["trajectory_bit_equal"] = bool(np.array_equal(traj,
                                                       slam.estimate_c2w))
     res["features_bit_equal"] = bool(torch.equal(feat, slam.map_state.feat))
-    res["launches_unchanged"] = knn.KNN_SELECT_LAUNCHES.count == launches
+    res["launches_unchanged"] = launches == (
+        knn.KNN_SELECT_LAUNCHES.count,
+        track_render.TRACK_RENDER_LAUNCHES.count)
     print("roofline:", json.dumps(res), flush=True)
     for key in ("trajectory_bit_equal", "features_bit_equal",
                 "launches_unchanged"):
@@ -975,13 +1153,15 @@ def cli_overlay(out: str) -> str:
 def cli_phase():
     """The CLI path: `python -m loopy_slam_torch.run <overlay> --stop
     CLI_STOP`, then `... --resume` in a fresh session (the frames after it,
-    color refinement, the final evaluation), with the kernel's launch
-    count reset before the first call and read after the second. Returns
-    (summary, overlay path)."""
+    color refinement, the final evaluation), with the kernels' launch
+    counts reset before the first call and read after the second (each
+    session resets them too, so they count the second). Returns (summary,
+    overlay path)."""
     import shutil
 
     from loopy_slam_torch import run as cli
     from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.models import track_render
     from loopy_slam_torch.ops import knn
     from loopy_slam_torch.utils.io import load_checkpoint
 
@@ -992,6 +1172,7 @@ def cli_phase():
     os.makedirs(out)
     overlay = cli_overlay(out)
     knn.KNN_SELECT_LAUNCHES.reset()
+    track_render.TRACK_RENDER_LAUNCHES.reset()
     t0 = time.perf_counter()
     first = cli.main([overlay, "--stop", str(CLI_STOP)])
     t1 = time.perf_counter()
@@ -1000,6 +1181,7 @@ def cli_phase():
                       vis_jpeg_check(slam, os.path.join(out, "vis_check")))
     t2 = time.perf_counter()
     launches = knn.KNN_SELECT_LAUNCHES.count
+    track_launches = track_render.TRACK_RENDER_LAUNCHES.count
     vis = {d: sorted(f for f in os.listdir(os.path.join(out, d))
                      if f.endswith(".jpg"))
            for d in ("tracking_vis", "mapping_vis")}
@@ -1035,6 +1217,8 @@ def cli_phase():
         "eval_error": second.get("eval_error"),
         "mesh_faces": n_faces,
         "knn_select_launches": launches,
+        "track_render_launches": track_launches,
+        "track_render_expected": track_render_expected(load_config(overlay)),
     }
     print("eval:", json.dumps(summary), flush=True)
     cfg = load_config(overlay)
@@ -1170,21 +1354,27 @@ def dataset_overlay(out: str, base_yaml: str, fixture: str,
 
 def run_dataset_path(overlay, out, after_run=None):
     """`python -m loopy_slam_torch.run` (its `main`, with after_run) on
-    overlay, with the kernel's launch count reset just before and read just
-    after; the session's stats plus launches, run seconds, peak device
-    memory, the final mesh's face count and the visualizer's JPEGs."""
+    overlay, with the kernels' launch counts reset just before and read
+    just after; the session's stats plus launches (and whether the
+    tracker's render kernels should have launched), run seconds, peak
+    device memory, the final mesh's face count and the visualizer's
+    JPEGs."""
     import torch
 
     from loopy_slam_torch import run as cli
+    from loopy_slam_torch.config import load_config
+    from loopy_slam_torch.models import track_render
     from loopy_slam_torch.ops import knn
     from loopy_slam_torch.utils.io import read_ply_mesh
 
     knn.KNN_SELECT_LAUNCHES.reset()
+    track_render.TRACK_RENDER_LAUNCHES.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats = cli.main([overlay], after_run=after_run)
     run_s = time.perf_counter() - t0
     launches = knn.KNN_SELECT_LAUNCHES.count
+    track_launches = track_render.TRACK_RENDER_LAUNCHES.count
     mesh_path = os.path.join(out, "mesh", "final_mesh.ply")
     n_faces = (len(read_ply_mesh(mesh_path)[1])
                if os.path.exists(mesh_path) else 0)
@@ -1192,7 +1382,11 @@ def run_dataset_path(overlay, out, after_run=None):
                  if os.path.isdir(os.path.join(out, d))
                  for f in os.listdir(os.path.join(out, d))
                  if f.endswith(".jpg"))
-    return stats, {"knn_select_launches": launches, "run_s": run_s,
+    return stats, {"knn_select_launches": launches,
+                   "track_render_launches": track_launches,
+                   "track_render_expected": track_render_expected(
+                       load_config(overlay)),
+                   "run_s": run_s,
                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                    "mesh_faces": n_faces, "vis_images": vis}
 
@@ -1984,6 +2178,7 @@ def pretrain_phase(device):
     import torch
 
     from loopy_slam_torch.convert import decoders_to_numpy
+    from loopy_slam_torch.models import track_render
     from loopy_slam_torch.models.decoder import init_decoders
     from loopy_slam_torch.ops import knn
     from loopy_slam_torch.slam import _flatten
@@ -1994,6 +2189,7 @@ def pretrain_phase(device):
     os.makedirs(TOOLS_OUT, exist_ok=True)
     out = os.path.join(TOOLS_OUT, "geo.pkl")
     knn.KNN_SELECT_LAUNCHES.reset()
+    track_render.TRACK_RENDER_LAUNCHES.reset()
     t0 = time.perf_counter()
     _, scenes = pretrain_geo.main(
         ["--scenes", str(PRETRAIN_SCENES), "--iters", str(PRETRAIN_ITERS),
@@ -2001,6 +2197,7 @@ def pretrain_phase(device):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = knn.KNN_SELECT_LAUNCHES.count
+    track_launches = track_render.TRACK_RENDER_LAUNCHES.count
     with open(out, "rb") as f:
         got = dict(_flatten(pickle.load(f)))
     with open(os.path.join(HERE, "pretrained", "geo_decoder.pkl"),
@@ -2027,6 +2224,8 @@ def pretrain_phase(device):
         "ms_per_iteration": [r["seconds"] / PRETRAIN_ITERS * 1e3
                              for r in scenes],
         "knn_select_launches": launches, "trunk_layout_ok": layout_ok,
+        "track_render_launches": track_launches,
+        "track_render_expected": False,  # pretraining tracks nothing
         "trunk_finite": all(bool(np.isfinite(a).all()) for a in got.values()),
         "trunk_max_move": moved,
         "heldout_geo_loss_trained": trained_loss,
@@ -2700,6 +2899,11 @@ def multi_session(map_shard: bool, slice_summary):
         "shard_counts": [r["shard_count"] for r in ranks],
         "launches_by_rank": [r["knn_select_launches"] for r in ranks],
         "knn_select_launches": sum(r["knn_select_launches"] for r in ranks),
+        "track_launches_by_rank": [r["track_render_launches"]
+                                   for r in ranks],
+        "track_render_launches": sum(r["track_render_launches"]
+                                     for r in ranks),
+        "track_render_expected": track_render_expected(cfg, map_shard),
         "checksums_equal": len({r["checksum"] for r in ranks}) == 1,
         "run_s_by_rank": [r["run_s"] for r in ranks], "wall_s": wall,
         "track_median_s": med.get("track"), "map_median_s": med.get("map"),
@@ -2868,10 +3072,14 @@ def main(argv=None) -> int:
         variant_libs = build_variants(
             os.path.join(HERE, "output", "chip_smoke_variants"))
     build.load_library()
+    build.load_track_library()
     print(f"== phase 2: kernels built/loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    if build.BUILD_LOG:
-        print(build.BUILD_LOG["log"].strip(), flush=True)
+    for log in (build.BUILD_LOG, build.TRACK_BUILD_LOG):
+        if log:
+            print(f"{os.path.basename(log['path'])}: {log['seconds']:.1f} s",
+                  flush=True)
+            print(log["log"].strip(), flush=True)
     if args.dataset_runs:
         for _ in range(args.dataset_runs):
             replica_phase()
@@ -2903,6 +3111,7 @@ def main(argv=None) -> int:
     # the kernel check's map spans frames 0..30 whatever the slice's length
     cfg = room_config(31, os.path.join(HERE, "output", "chip_smoke"))
     shape_results = kernel_phase(cfg, device, variant_libs)
+    track_results = track_render_phase(device)
     summary = slice_phase(args.frames, device)
     seg_summary, seg_slam = segmented_phase(device)
     shape_results.append(refine_pool_check(seg_slam, seg_slam.cfg))
@@ -2934,14 +3143,16 @@ def main(argv=None) -> int:
 
     main_shape = next(r for r in shape_results
                       if r["shape"].startswith("map_pool"))
-    # each path's count, reset just before its run and read just after
-    by_path = {name: res["knn_select_launches"] for name, res in (
-        ("slice1", summary), ("segmented", seg_summary),
-        ("cli", cli_summary), ("tum", tum_summary),
-        ("replica", replica_summary), ("scannet", scannet_summary),
-        ("base", base_summary), ("pretrain", pre_summary),
-        ("azure", azure_summary), ("map_shard", shard_summary),
-        ("ray_dp", dp_summary))}
+    paths = dict(slice1=summary, segmented=seg_summary, cli=cli_summary,
+                 tum=tum_summary, replica=replica_summary,
+                 scannet=scannet_summary, base=base_summary,
+                 pretrain=pre_summary, azure=azure_summary,
+                 map_shard=shard_summary, ray_dp=dp_summary)
+    # each path's counts, reset just before its run and read just after
+    by_path = {name: res["knn_select_launches"]
+               for name, res in paths.items()}
+    track_by_path = {name: res["track_render_launches"]
+                     for name, res in paths.items()}
     entry = {
         "name": "knn_select", "route": "cuda",
         "source": "loopy_slam_torch/csrc/knn_select.cu",
@@ -2957,7 +3168,18 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shapes": shape_results,
     }
-    print(json.dumps({"kernels": [entry]}))
+    track_entry = {
+        "name": "track_render", "route": "cuda",
+        "source": "loopy_slam_torch/csrc/track_render.cu",
+        "replaces": None,
+        "added_for": "host dispatch of the tracker's render step",
+        "launches": sum(track_by_path.values()),
+        "launches_by_path": track_by_path,
+        "shapes": track_results,
+    }
+    print(json.dumps({"kernels": [entry, track_entry]}))
+    gate_track_render(track_by_path, {
+        name: res["track_render_expected"] for name, res in paths.items()})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"ok": True, "device": {

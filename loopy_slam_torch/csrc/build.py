@@ -1,7 +1,8 @@
 """Build and load the port's native libraries.
 
 The CUDA sources in this directory are compiled at first use with nvcc
-into a shared library with a plain C interface, loaded with ctypes (no
+into shared libraries with a plain C interface (the k-NN kernel's, and the
+tracker's render kernels'), loaded with ctypes (no
 PyTorch headers, so a build takes seconds). The host mesh rasterizer
 (`raster_depth.cpp`), the PNG reader's unfilter (`png_unfilter.cpp`) and
 the JPEG codec's entropy coding (`jpeg_huffman.cpp`) are libraries of
@@ -27,6 +28,9 @@ from typing import Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("knn_select.cu",)
+# the tracker's render kernels: a library of their own, so that a change to
+# either source leaves the other's library as it is
+TRACK_SOURCES = ("track_render.cu",)
 # -fmad=false: no fused multiply-add contraction, so distances round like
 # the reference's separate multiply and add (the intrinsics in the source
 # already pin the hot expression; this covers the rest of the file)
@@ -43,8 +47,10 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_track_lib: Optional[ctypes.CDLL] = None
 _host_libs: dict = {}  # source -> loaded g++ library
 BUILD_LOG: dict = {}  # last build: {"path", "seconds", "log"} (empty if loaded)
+TRACK_BUILD_LOG: dict = {}  # the same, of the render kernels' library
 
 
 def nvcc_path() -> str:
@@ -110,6 +116,13 @@ def build_library() -> str:
                     BUILD_LOG)
 
 
+def build_track_library() -> str:
+    """Compile the tracker's render kernels if no library for them exists;
+    return its path."""
+    return _compile(nvcc_path(), TRACK_SOURCES, NVCC_FLAGS, "loopy_track",
+                    TRACK_BUILD_LOG)
+
+
 def _load_host_library(source: str, stem: str, what: str,
                        functions: dict) -> ctypes.CDLL:
     """Build (if needed) and load the g++ library of `source`, once per
@@ -172,3 +185,25 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ci
             _lib = lib
         return _lib
+
+
+def load_track_library() -> ctypes.CDLL:
+    """Build (if needed) and load the tracker's render kernels
+    (track_render.cu), once per process."""
+    global _track_lib
+    with _lock:
+        if _track_lib is None:
+            lib = ctypes.CDLL(build_track_library())
+            vp, ci, cf, cl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                              ctypes.c_long)
+            fwd = lib.track_render_forward
+            fwd.argtypes = [vp] * 8 + [cf] + [vp] * 6 + [ci] * 7 + [cf, vp]
+            fwd.restype = ci
+            bwd = lib.track_render_backward
+            bwd.argtypes = ([vp] * 8 + [cf, vp, cl, vp, cl, cl, vp, vp]
+                            + [ci] * 7 + [cf, vp])
+            bwd.restype = ci
+            lib.track_render_save_floats.argtypes = [ci, ci]
+            lib.track_render_save_floats.restype = cl
+            _track_lib = lib
+        return _track_lib

@@ -21,8 +21,9 @@ Random draws (ops/draws.py), in order. Cached path, per block: the pool's
 pixel rows (P,) then cols (P,) -- or, with a pre-selected pixel pool (the
 color-gradient picks), one index into it (P,); per iteration: the pool
 pick (pixels,), then the decode's geometry and color noise (pixels*S, c)
-each. Uncached path, per iteration: rows (pixels,) and cols (pixels,), or
-one index into the pre-selected pool (pixels,); then the decode noise.
+each (where models/track_render renders the iteration, both before it).
+Uncached path, per iteration: rows (pixels,) and cols (pixels,), or one
+index into the pre-selected pool (pixels,); then the decode noise.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
+from ..models import track_render
 from ..models.decoder import ExposureMLP
 from ..models.renderer import (RenderOptions, decode_neighbors,
                                gather_featpos, render_batch_ray)
@@ -194,7 +196,10 @@ def _build_track_cache(cam7, map_pos, grid, feats, gt_color, gt_depth, draw,
 def tracking_loss_cached(cam7, dec, cache, draw, opts: TrackOptions,
                          ropts: RenderOptions, exposure=None):
     """tracking_loss with the k-NN + gather served from the block pool: a
-    fresh `pixels` subset per iteration, pose-dependent terms recomputed."""
+    fresh `pixels` subset per iteration, pose-dependent terms recomputed.
+    Where track_render.eligible holds, the decode and compositing are one
+    track_render.render call (two kernels on the card), with both noise
+    draws made before it; otherwise decode_neighbors and composite."""
     c2w = c2w_from_tensor(cam7)
     S, k = ropts.n_surface, ropts.nn_num
     R = opts.pixels
@@ -206,23 +211,29 @@ def tracking_loss_cached(cam7, dec, cache, draw, opts: TrackOptions,
 
     d, c, inside, z = (take(cache["d"]), take(cache["c"]),
                        take(cache["inside"]), take(cache["z"]))
-    D_idx = take(cache["D"]).reshape(R * S, k)
-    both = take(cache["both"]).reshape(R * S, k, -1)
-    nn = take(cache["nn"]).reshape(R * S)
     rays_o, rays_d = rays_from_uv(take(cache["i"]), take(cache["j"]), c2w,
                                   opts.fx, opts.fy, opts.cx, opts.cy)
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
            ).reshape(-1, 3)
-    views_d = (torch.repeat_interleave(rays_d, S, dim=0)
-               if ropts.use_view_direction else None)
-    rq = (ropts.radius_query if cache["rq"] is None
-          else torch.repeat_interleave(take(cache["rq"]), S))
-    ef, mlp = exposure if exposure is not None else (None, None)
-    occ, rgb, _has = decode_neighbors(
-        dec, pts, draw, ropts, "color", D_idx, both, nn, rq, views_d=views_d,
-        exposure_feat=ef, exposure_mlp=mlp)
-    depth, var, color, _ = composite(
-        rgb.reshape(R, S, 3), occ.reshape(R, S), z, ropts.sigmoid_coef)
+    if track_render.eligible(ropts, exposure):
+        noise_geo = draw.normal((R * S, ropts.c_dim))
+        noise_col = draw.normal((R * S, ropts.c_dim))
+        depth, var, color = track_render.render(
+            dec, pts, z, cache, pick, noise_geo, noise_col, ropts)
+    else:
+        D_idx = take(cache["D"]).reshape(R * S, k)
+        both = take(cache["both"]).reshape(R * S, k, -1)
+        nn = take(cache["nn"]).reshape(R * S)
+        views_d = (torch.repeat_interleave(rays_d, S, dim=0)
+                   if ropts.use_view_direction else None)
+        rq = (ropts.radius_query if cache["rq"] is None
+              else torch.repeat_interleave(take(cache["rq"]), S))
+        ef, mlp = exposure if exposure is not None else (None, None)
+        occ, rgb, _has = decode_neighbors(
+            dec, pts, draw, ropts, "color", D_idx, both, nn, rq,
+            views_d=views_d, exposure_feat=ef, exposure_mlp=mlp)
+        depth, var, color, _ = composite(
+            rgb.reshape(R, S, 3), occ.reshape(R, S), z, ropts.sigmoid_coef)
     depth = torch.where(d > 0, depth, torch.zeros((), device=d.device))
     return _loss_from_render(d, c, inside, depth, var, color, opts)
 
@@ -332,7 +343,8 @@ def _track_frame_impl(dec, map_pos, grid, feats, gt_color, gt_depth,
         nonlocal cam, extra, st, best_loss, best_cam, best_nm
         vs = [v.requires_grad_(True) for v in [cam] + extra]
         exposure = ((vs[1], ExposureMLP(*vs[2:])) if extra else None)
-        with tr.span("track.fwd"):
+        fused = int(use_cache and track_render.eligible(ropts, exposure))
+        with tr.span("track.fwd", fused=fused):
             loss, aux = loss_fn(vs[0], exposure)
         with tr.span("track.bwd"):
             grads = torch.autograd.grad(loss, vs)

@@ -48,13 +48,15 @@ def session(mesh, cfg, device=None, resume=None, after_run=None,
     score the trajectory and, on rank 0 of a finished run, the final
     evaluation. Returns main()'s statistics; on a mesh also `rank`: this
     rank's checksum of the replicated state (LoopySLAM.
-    replicated_checksum), k-NN kernel launches during the run, shard
-    count and collective times. after_run(slam), if given, is called on
-    rank 0 with the finished session before it closes; its result goes
-    under "after_run". spans: the path --spans writes to, or None."""
+    replicated_checksum), k-NN and tracker render kernel launches during
+    the run, shard count and collective times. after_run(slam), if given,
+    is called on rank 0 with the finished session before it closes; its
+    result goes under "after_run". spans: the path --spans writes to, or
+    None."""
     import numpy as np
     import torch
 
+    from loopy_slam_torch.models import track_render
     from loopy_slam_torch.ops import knn
     from loopy_slam_torch.slam import LoopySLAM
     from loopy_slam_torch.tools.eval_ate import evaluate_trajectories
@@ -75,12 +77,14 @@ def session(mesh, cfg, device=None, resume=None, after_run=None,
             resumed = {"checkpoint": path, "start_idx": start_idx,
                        "points": int(slam.map_state.count)}
         knn.KNN_SELECT_LAUNCHES.reset()
+        track_render.TRACK_RENDER_LAUNCHES.reset()
         if mesh is not None:
             mesh.reset_stats()
         t0 = time.perf_counter()
         result = slam.run(stop=cfg.get("stop", 0), start_idx=start_idx)
         run_s = time.perf_counter() - t0
         launches = knn.KNN_SELECT_LAUNCHES.count
+        track_launches = track_render.TRACK_RENDER_LAUNCHES.count
         stats = evaluate_trajectories(result["estimate_c2w"],
                                       result["gt_c2w"])
         if slam.rank == 0:
@@ -99,6 +103,7 @@ def session(mesh, cfg, device=None, resume=None, after_run=None,
                 "rank": mesh.rank, "backend": mesh.backend,
                 "checksum": slam.replicated_checksum(), "run_s": run_s,
                 "knn_select_launches": launches,
+                "track_render_launches": track_launches,
                 "shard_count": (int(slam._smap.count) if slam.map_sharded
                                 else None),
                 "collectives": {k: {"s": v[0], "calls": int(v[1]),

@@ -99,6 +99,7 @@ from .mapping.fragments import FragmentManager
 from .mapping.loop_closure import LoopCloser, LoopClosureConfig
 from .mapping.point_cloud import (MapOptions, MapState, init_map,
                                   input_cloud_insert, valid_mask)
+from .models import track_render
 from .models.decoder import init_decoders, trainable_mask
 from .models.renderer import RenderOptions, render_batch_ray
 from .ops import knn, tsdf
@@ -1757,7 +1758,7 @@ class LoopySLAM:
         Each call runs once more under the counter, on a copy of the
         decoders and a draw stream set to the captured state; the session
         is left as it was (trajectory, map, decoders, Adam states, draw
-        streams, timings, the kernel's launch count). A key is missing
+        streams, timings, the kernels' launch counts). A key is missing
         until its call ran; {} on a mesh.
 
         The captured inputs stay referenced until the next capture: the
@@ -1778,7 +1779,8 @@ class LoopySLAM:
         if self.mesh is not None:
             return {}
         out = {}
-        launches = knn.KNN_SELECT_LAUNCHES.count
+        launches = (knn.KNN_SELECT_LAUNCHES.count,
+                    track_render.TRACK_RENDER_LAUNCHES.count)
         try:
             track = self._roofline_calls.get("track")
             if track is not None:
@@ -1788,7 +1790,8 @@ class LoopySLAM:
             if frame is not None:
                 out["map"] = self._frame_counts(frame)
         finally:
-            knn.KNN_SELECT_LAUNCHES.count = launches
+            (knn.KNN_SELECT_LAUNCHES.count,
+             track_render.TRACK_RENDER_LAUNCHES.count) = launches
         return out
 
     def _counts(self, kept) -> Dict:

@@ -36,7 +36,8 @@ conventions: neither reads the whole table); a fill or a factory writes
 its output only; copy_ reads its source and writes its destination.
 
 Work that no dispatch mode sees is reported by its caller through
-`report` (ops/knn.query: the k-NN kernel, launched through ctypes); the
+`report` (ops/knn.query: the k-NN kernel, launched through ctypes;
+models/track_render: the tracker's render kernels); the
 caller runs its plain version `uncounted`, so that the CPU count and the
 card's agree. Host work (numpy) is not device work and is not counted.
 """
@@ -243,11 +244,15 @@ class CostCounter(TorchDispatchMode):
         self.transcendentals += trans
         self.bytes += nbytes
 
-    def add(self, kind: str, flops: int, nbytes: int):
+    def add(self, kind: str, flops: int, nbytes: int,
+            transcendentals: int = 0, products: int = 0):
         """Count work no dispatch mode sees (a kernel launched outside
-        PyTorch's dispatcher) under `kind`."""
+        PyTorch's dispatcher) under `kind`; `products` is the share of
+        `flops` in matrix products."""
         self.flops += flops
         self.bytes += nbytes
+        self.transcendentals += transcendentals
+        self.products += products
         row = self.reported.setdefault(kind, [0, 0])
         row[0] += flops
         row[1] += nbytes
@@ -268,10 +273,11 @@ def active() -> List[CostCounter]:
             if isinstance(m, CostCounter)]
 
 
-def report(kind: str, flops: int, nbytes: int) -> None:
+def report(kind: str, flops: int, nbytes: int, transcendentals: int = 0,
+           products: int = 0) -> None:
     """Add work no dispatch mode sees to every active counter."""
     for c in active():
-        c.add(kind, flops, nbytes)
+        c.add(kind, flops, nbytes, transcendentals, products)
 
 
 @contextlib.contextmanager
